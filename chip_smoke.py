@@ -1,0 +1,534 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # one card
+
+Phases, each ending in ``torch.cuda.synchronize()``; any failure raises and
+the script exits non-zero without its result line:
+
+  1. device   the card's name and power limit (nvidia-smi); the CUDA
+              kernels are built from src/repro_torch/kernels/csrc.
+  2. kernels  each CUDA kernel against its plain PyTorch version on the
+              card: the gather at D in {8, 128} x {f32, bf16, i32} with a
+              partial last block; the scatter-RMW for all seven ops on i32
+              and ADD/MIN/MAX/MUL on f32 and bf16, with negative,
+              past-the-end and duplicate-after-clamp destinations, and on
+              a plan whose rows repeat (runs across tiles) with a real
+              value on every lane.
+  3. main     the Indirect Access path through the port's entry points
+              (``run_tiled`` on ``Engine(tile_size=16384, use_kernel=True)``)
+              on a row table A of 2^20 x 128 f32 with 2^21 lookups from a
+              seeded zipf(1.05) stream and a uniform one, for two patterns:
+              GATHER out[i] = A[B[i]] and RMW A[B[i]] += V[i]. Each result is
+              held against the port's plain engine (use_kernel=False) on the
+              card and against direct torch indexing; both kernels' launch
+              counters, set to 0 just before, must have advanced. Then each
+              pattern's end-to-end time, warm, kernel and plain path
+              alternating over E2E_RUNS runs each.
+  4. timing   each kernel at the main path's shapes (one engine tile of the
+              zipf stream), warm, with CUDA events over many launches,
+              beside its byte bound, its plain version and a library call;
+              the RMW kernel, its plain version and ``index_add_`` each
+              update their own copy of the table in place, made before
+              the timed loop.
+  5. profile  torch.profiler over four engine tiles (zipf) of each pattern
+              on the kernel path: the device's busy share, the top kernels
+              by device time and the top operators by host time.
+
+Tolerances: gathers and integer RMWs bit for bit; float MIN/MAX bit for bit
+(NaN where NaN); float ADD/MUL RMW rtol=1e-5/atol=1e-6 in phase 2 (f32;
+bf16 one ulp, rtol=1e-2) and rtol=1e-4/atol=1e-2 on the main path, whose
+duplicate-heavy zipf rows are summed with atomics in another order.
+
+The last two lines are the kernel table (JSON) and
+{"ok": true, "device": {...}}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
+ROWS, WIDTH = 2 ** 20, 128
+TILE = 16384
+LOOKUPS = 2 ** 21                  # per pattern and stream: 128 engine tiles
+ITERS = 50                         # timed launches per kernel
+E2E_RUNS = 3                       # warm end-to-end runs per path
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def sync():
+    import torch
+    torch.cuda.synchronize()
+
+
+def time_ms(fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` warm calls (CUDA events)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def max_abs_err(got, want) -> float:
+    import torch
+    g, w = got.double(), want.double()
+    both_nan = torch.isnan(g) & torch.isnan(w)
+    diff = torch.where(both_nan, 0.0, (g - w).abs())
+    return float(torch.nan_to_num(diff, nan=float("inf")).max()) \
+        if diff.numel() else 0.0
+
+
+def assert_match(what, got, want, *, rtol=0.0, atol=0.0):
+    import torch
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    if rtol == 0 and atol == 0 and not got.is_floating_point():
+        if not torch.equal(got, want):
+            raise AssertionError(f"{what}: not bit for bit "
+                                 f"(max abs err {max_abs_err(got, want)})")
+        return
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               equal_nan=True, msg=lambda m: f"{what}: {m}")
+
+
+# --- phase 1 ---------------------------------------------------------------
+
+def phase_device():
+    import torch
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
+        f"device {torch.cuda.get_device_name(0)}")
+    from repro_torch.kernels import build
+    t0 = time.perf_counter()
+    logs = build.build_all()
+    for source, text in logs.items():
+        regs = sorted({int(r) for r in re.findall(r"Used (\d+) registers",
+                                                   text)})
+        spills = sorted(set(re.findall(
+            r"[1-9]\d* bytes (?:spill \w+|stack frame)", text)))
+        log(f"[ptxas {source}] registers per thread {regs}; "
+            f"spills: {spills or 'none'}")
+    log(f"phase 1 device: built {sorted(logs) or 'nothing (cached)'} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return smi
+
+
+# --- phase 2 ---------------------------------------------------------------
+
+def phase_kernels(dev):
+    import torch
+    from repro_torch.core import coalesce, make_row_table_plan
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.gather import ops as gops
+    from repro_torch.kernels.scatter_rmw import ops as sops
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    gen = torch.Generator(device=dev).manual_seed(2)
+    n, br, lanes = 777, 128, 32                 # 777 rows: partial block
+    checked = 0
+    for d in (8, 128):
+        for dtype in (torch.float32, torch.bfloat16, torch.int32):
+            table = (torch.randn(n, d, generator=gen, device=dev)
+                     * 1000).to(dtype)
+            idx = torch.randint(0, n, (600,), generator=gen, device=dev,
+                                dtype=torch.int32)
+            idx[:4] = torch.tensor([n - 1, n - 1, 0, n - 2], device=dev)
+            plan = make_row_table_plan(coalesce(idx)[0], n_rows=896,
+                                       block_rows=br, lanes=lanes)
+            before = gk.launches
+            got = gops.row_table_gather(table, plan)
+            sync()
+            assert gk.launches == before + 1
+            assert_match(f"gather d={d} {dtype}", got,
+                         gops.row_table_gather(table, plan, use_ref=True))
+            checked += 1
+    cases = [(op, torch.int32) for op in
+             ("ADD", "MIN", "MAX", "AND", "OR", "XOR", "MUL")]
+    cases += [(op, dt) for dt in (torch.float32, torch.bfloat16)
+              for op in ("ADD", "MIN", "MAX", "MUL")]
+    cases += [("MIN", "u32"), ("MAX", "u32")]
+    for op, dtype in cases:
+        unsigned = dtype == "u32"
+        dt = torch.int32 if unsigned else dtype
+        d = 64
+        if dt == torch.int32:
+            table = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, d),
+                                  generator=gen, device=dev, dtype=dt)
+        else:
+            table = torch.randn(n, d, generator=gen, device=dev).to(dt)
+            table[3, :4] = float("nan")
+        uniq = torch.unique(torch.randint(0, n, (400,), generator=gen,
+                                          device=dev, dtype=torch.int32))
+        # negative, past-the-end and (after clamping) duplicate dests
+        dest = torch.cat([torch.tensor([-9, -1, 0], device=dev,
+                                       dtype=torch.int32),
+                          uniq[uniq > 0],
+                          torch.tensor([n, n + 5, n + 100], device=dev,
+                                       dtype=torch.int32)])
+        dest = torch.unique(dest)
+        if dt == torch.int32:
+            vals = torch.randint(-2 ** 31, 2 ** 31 - 1, (dest.shape[0], d),
+                                 generator=gen, device=dev, dtype=dt)
+        else:
+            vals = torch.randn(dest.shape[0], d, generator=gen,
+                               device=dev).to(dt)
+            if op == "MUL":
+                vals = 1 + vals / 64
+            vals[5, :2] = float("nan")
+        before = sk.launches
+        got = sops.row_table_rmw(table, dest, vals, op=op, block_rows=br,
+                                 lanes=lanes, unsigned=unsigned)
+        sync()
+        assert sk.launches == before + 1
+        want = sops.row_table_rmw(table, dest, vals, op=op, block_rows=br,
+                                  lanes=lanes, unsigned=unsigned,
+                                  use_ref=True)
+        tol = {}
+        if dt.is_floating_point and op in ("ADD", "MUL"):
+            tol = (dict(rtol=1e-5, atol=1e-6) if dt == torch.float32
+                   else dict(rtol=1e-2, atol=1e-2))
+        assert_match(f"rmw {op} {dtype}", got, want, **tol)
+        checked += 1
+    checked += check_rmw_duplicates(dev, gen)
+    sync()
+    log(f"phase 2 kernels: {checked} kernel-vs-plain checks passed")
+
+
+def check_rmw_duplicates(dev, gen) -> int:
+    """The RMW kernel on a plan of a sorted stream with repeated rows
+    (runs longer than a tile, across tile boundaries) and a real value on
+    every lane, padded ones included: every update of a row must land, none
+    lost to a stale read, so these results (ops whose order does not
+    change them) are bit for bit the plain version's."""
+    import torch
+    from repro_torch.core import make_row_table_plan
+    from repro_torch.kernels.scatter_rmw import ref as sref
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    n, br, lanes, d = 896, 128, 32, 16
+    idx = torch.randint(0, n, (500,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    idx = torch.sort(torch.cat([idx, torch.full((70,), 130, device=dev,
+                                                dtype=torch.int32)]))[0]
+    plan = make_row_table_plan(idx, n_rows=n, block_rows=br, lanes=lanes)
+    args = (plan.tile_block, plan.tile_first.to(torch.int32), plan.offsets)
+    checked = 0
+    for op, dt in (("ADD", torch.int32), ("MUL", torch.int32),
+                   ("XOR", torch.int32), ("MIN", torch.float32)):
+        if dt == torch.int32:
+            table = torch.randint(-2 ** 31, 2 ** 31 - 1, (n, d), generator=gen,
+                                  device=dev, dtype=dt)
+            vals = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                                 (plan.num_tiles * lanes, d), generator=gen,
+                                 device=dev, dtype=dt)
+        else:
+            table = torch.randn(n, d, generator=gen, device=dev)
+            vals = torch.randn(plan.num_tiles * lanes, d, generator=gen,
+                               device=dev)
+        kw = dict(block_rows=br, lanes=lanes, op=op)
+        got = sk.row_table_rmw_(table.clone(), *args, vals, **kw)
+        assert_match(f"rmw {op} {dt} duplicates in plan order", got,
+                     sref.row_table_rmw_ref_(table.clone(), *args, vals,
+                                             **kw))
+        checked += 1
+    return checked
+
+
+# --- phase 3 ---------------------------------------------------------------
+
+def make_data(dev, lookups: int, seed: int):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    streams = {
+        "zipf": (rng.zipf(1.05, size=lookups) % ROWS).astype(np.int32),
+        "uniform": rng.integers(0, ROWS, size=lookups).astype(np.int32),
+    }
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn(ROWS, WIDTH, generator=gen, device=dev)
+    V = torch.randn(lookups, WIDTH, generator=gen, device=dev)
+    B = {k: torch.from_numpy(v).to(dev) for k, v in streams.items()}
+    return A, V, B
+
+
+def patterns():
+    from repro_torch.core import Access, Load, Pattern, Var
+    gather = Pattern([Access("ST", "out", Var("i"),
+                             value=Load("A", Load("B", Var("i"))),
+                             dtype="f32")], name="gather")
+    rmw = Pattern([Access("RMW", "A", Load("B", Var("i")),
+                          value=Load("V", Var("i")), op="ADD",
+                          dtype="f32")], name="rmw")
+    return gather, rmw
+
+
+def run_pattern(engine, pattern, env, n):
+    from repro_torch.core import run_tiled
+    sync()
+    t0 = time.perf_counter()
+    out_env, _, _ = run_tiled(engine, pattern, env, n=n)
+    sync()
+    return out_env, (time.perf_counter() - t0) * 1e3
+
+
+def phase_main(dev, seed: int):
+    import torch
+    from repro_torch.core import Engine
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    lookups = LOOKUPS
+    A, V, B = make_data(dev, lookups, seed)
+    gather, rmw = patterns()
+    fast = Engine(tile_size=TILE, use_kernel=True, device=dev)
+    plain = Engine(tile_size=TILE, use_kernel=False, device=dev)
+    out0 = torch.zeros(lookups, WIDTH, device=dev)
+    cold = {}
+    results = {}
+    gk.launches = 0
+    sk.launches = 0
+    for name, b in B.items():
+        env = {"A": A, "B": b, "out": out0}
+        results[("gather", name)], cold[("gather", name, "kernel")] = \
+            run_pattern(fast, gather, env, lookups)
+        env = {"A": A, "B": b, "V": V}
+        results[("rmw", name)], cold[("rmw", name, "kernel")] = \
+            run_pattern(fast, rmw, env, lookups)
+    launches = {"row_table_gather": gk.launches, "row_table_rmw": sk.launches}
+    log(f"phase 3 main path: launches {launches}")
+    if min(launches.values()) == 0:
+        raise AssertionError(f"a kernel of the main path never ran: "
+                             f"{launches}")
+    for name, b in B.items():
+        idx = b.long()
+        out_p, cold[("gather", name, "plain")] = run_pattern(
+            plain, gather, {"A": A, "B": b, "out": out0}, lookups)
+        got = results[("gather", name)]["out"]
+        assert_match(f"main gather {name} vs plain engine", got,
+                     out_p["out"])
+        assert_match(f"main gather {name} vs A[B]", got, A[idx])
+        del out_p
+        rmw_p, cold[("rmw", name, "plain")] = run_pattern(
+            plain, rmw, {"A": A, "B": b, "V": V}, lookups)
+        got = results[("rmw", name)]["A"]
+        assert_match(f"main rmw {name} vs plain engine", got, rmw_p["A"],
+                     rtol=1e-4, atol=1e-2)
+        assert_match(f"main rmw {name} vs index_add", got,
+                     A.clone().index_add_(0, idx, V), rtol=1e-4, atol=1e-2)
+        assert torch.isfinite(got).all()
+        del rmw_p
+        results.pop(("gather", name))
+        results.pop(("rmw", name))
+        torch.cuda.empty_cache()
+    for (pat, name, path), ms in sorted(cold.items()):
+        log(f"e2e {pat:6s} {name:7s} {path:6s} first run {ms:10.3f} ms "
+            f"({lookups} lookups, {lookups // TILE} engine tiles)")
+    phase_e2e(fast, plain, A, V, B, out0, lookups)
+    sync()
+    return A, V, B, launches
+
+
+def phase_e2e(fast, plain, A, V, B, out0, lookups: int):
+    """Warm end-to-end time of each pattern and stream: kernel and plain
+    path alternating, E2E_RUNS runs each (both paths ran once above)."""
+    import statistics
+    gather, rmw = patterns()
+    for name, b in B.items():
+        for pat, env in ((gather, {"A": A, "B": b, "out": out0}),
+                         (rmw, {"A": A, "B": b, "V": V})):
+            times = {"kernel": [], "plain": []}
+            for _ in range(E2E_RUNS):
+                for path, engine in (("kernel", fast), ("plain", plain)):
+                    times[path].append(run_pattern(engine, pat, env,
+                                                   lookups)[1])
+            for path, ms in times.items():
+                log(f"e2e {pat.name:6s} {name:7s} {path:6s} warm median "
+                    f"{statistics.median(ms):10.3f} ms, runs "
+                    f"{' '.join(f'{t:.3f}' for t in ms)} "
+                    f"({lookups} lookups, {lookups // TILE} engine tiles)")
+
+
+# --- phase 4 ---------------------------------------------------------------
+
+def phase_timing(dev, A, V, B, launches):
+    import torch
+    from repro_torch.core import coalesce, make_row_table_plan
+    from repro_torch.core.bulk_ops import coalesce_updates
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.gather import ref as gref
+    from repro_torch.kernels.scatter_rmw import ref as sref
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.kernels.scatter_rmw.ops import plan_updates
+
+    # one engine tile of the zipf stream, as bulk_gather / bulk_rmw see it
+    idx = B["zipf"][:TILE].clamp(0, ROWS - 1)
+    br, lanes = 1024, 256                       # bulk ops' defaults
+    esize = A.element_size()
+    row_bytes = WIDTH * esize
+    table_rows = []
+
+    uniq = coalesce(idx)[0]
+    plan = make_row_table_plan(uniq, n_rows=ROWS, block_rows=br, lanes=lanes)
+    rows = (plan.tile_block[:, None].long() * br + plan.offsets).reshape(-1)
+    g_args = (A, plan.tile_block, plan.offsets)
+    g_kw = dict(block_rows=br, lanes=lanes)
+    g_out = gk.row_table_gather(*g_args, **g_kw)
+    g_err = max_abs_err(g_out, gref.row_table_gather_ref(*g_args, **g_kw))
+    assert g_err == 0.0, g_err
+    g_bytes = (g_out.numel() * esize + torch.unique(rows).numel() * row_bytes
+               + plan.tile_block.numel() * 4 + plan.offsets.numel() * 4)
+    valid_bytes = int(plan.valid.sum()) * row_bytes
+    table_rows.append(dict(
+        name="row_table_gather", route="cuda",
+        source="src/repro_torch/kernels/csrc/row_table_gather.cu",
+        replaces="src/repro/kernels/gather/gather.py:67",
+        launches=launches["row_table_gather"], max_abs_err=g_err,
+        ms=time_ms(lambda: gk.row_table_gather(*g_args, **g_kw), ITERS),
+        plain_ms=time_ms(lambda: gref.row_table_gather_ref(*g_args, **g_kw),
+                         ITERS),
+        bound_ms=g_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=time_ms(lambda: torch.index_select(A, 0, rows), ITERS)))
+    log(f"gather plan: {plan.num_tiles} tiles x {lanes} lanes -> "
+        f"{g_out.numel() * esize / 1e6:.1f} MB written per launch, "
+        f"{valid_bytes / 1e6:.1f} MB of it valid rows")
+
+    # the RMW kernel's inputs for the same tile, as bulk_rmw hands them on
+    seg_dest, packed = coalesce_updates(idx, V[:TILE], n=ROWS, op="ADD")
+    rplan, vals = plan_updates(ROWS, seg_dest, packed, op="ADD",
+                               block_rows=br, lanes=lanes)
+    first = rplan.tile_first.to(torch.int32)
+    r_args = (rplan.tile_block, first, rplan.offsets, vals)
+    r_kw = dict(block_rows=br, lanes=lanes, op="ADD")
+    # each updates its own copy of A in place, as the kernel does: no
+    # table copy inside any timed call
+    work, plain_work, lib_work = A.clone(), A.clone(), A.clone()
+    r_out = sk.row_table_rmw_(work, *r_args, **r_kw)
+    r_err = max_abs_err(r_out, sref.row_table_rmw_ref_(plain_work, *r_args,
+                                                       **r_kw))
+    assert r_err <= 1e-4, r_err
+    rrows = (rplan.tile_block[:, None].long() * br
+             + rplan.offsets).reshape(-1)
+    touched = torch.unique(rrows).numel()
+    r_bytes = (vals.numel() * esize + 2 * touched * row_bytes
+               + rplan.offsets.numel() * 4 + 2 * rplan.tile_block.numel() * 4)
+    table_rows.append(dict(
+        name="row_table_rmw", route="cuda",
+        source="src/repro_torch/kernels/csrc/row_table_rmw.cu",
+        replaces="src/repro/kernels/scatter_rmw/scatter_rmw.py:82",
+        launches=launches["row_table_rmw"], max_abs_err=r_err,
+        ms=time_ms(lambda: sk.row_table_rmw_(work, *r_args, **r_kw), ITERS),
+        plain_ms=time_ms(lambda: sref.row_table_rmw_ref_(
+            plain_work, *r_args, **r_kw), ITERS),
+        bound_ms=r_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=time_ms(lambda: lib_work.index_add_(0, rrows, vals),
+                           ITERS)))
+    log(f"rmw plan: {rplan.num_tiles} tiles ({int(rplan.n_tiles)} valid), "
+        f"{touched} rows touched, {vals.numel() * esize / 1e6:.1f} MB of "
+        f"lane values read per launch")
+    for r in table_rows:
+        log(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
+            f" ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
+            f"library {r['library_ms']:.4f} ms, {r['launches']} launches on "
+            f"the main path, max abs err {r['max_abs_err']}")
+    sync()
+    return table_rows
+
+
+# --- phase 5 ---------------------------------------------------------------
+
+def _device_us(event) -> float:
+    return getattr(event, "self_device_time_total", None) or \
+        getattr(event, "self_cuda_time_total", 0.0)
+
+
+def phase_profile(dev, A, V, B, tiles: int = 4):
+    """Where the main path's time goes: ``torch.profiler`` over ``tiles``
+    engine tiles of each pattern on the kernel path (zipf stream, warm).
+    Prints wall time under the profiler, the device's busy share (the sum
+    of kernel time over wall time), the top kernels by device time and the
+    top operators by host time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import Engine
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    fast = Engine(tile_size=TILE, use_kernel=True, device=dev)
+    n = tiles * TILE
+    b = B["zipf"][:n]
+    gather, rmw = patterns()
+    envs = {"gather": (gather, {"A": A, "B": b,
+                                "out": torch.zeros(n, WIDTH, device=dev)}),
+            "rmw": (rmw, {"A": A, "B": b, "V": V[:n]})}
+    for name, (pat, env) in envs.items():
+        run_pattern(fast, pat, env, n)
+        with profile(activities=acts) as prof:
+            _, ms = run_pattern(fast, pat, env, n)
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+        ops = [e for e in events if e.device_type != DeviceType.CUDA]
+        busy = sum(_device_us(e) for e in kernels) / 1e3
+        log(f"profile {name}: {ms:.3f} ms wall under the profiler for "
+            f"{tiles} engine tiles; device kernels {busy:.3f} ms "
+            f"({100 * busy / ms:.1f}% busy)")
+        for what, rows, key in (
+                ("kernel", kernels, _device_us),
+                ("host", ops, lambda e: e.self_cpu_time_total)):
+            for e in sorted(rows, key=key, reverse=True)[:10]:
+                log(f"  top {what:6s} {key(e) / 1e3:9.3f} ms  "
+                    f"x{e.count:<5d} {e.key[:70]}")
+    sync()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print(f"chip_smoke: {ROOT / 'src' / 'repro_torch'} is missing; run "
+              "from a checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    dev = torch.device("cuda", 0)
+    t0 = time.perf_counter()
+    smi = phase_device()
+    phase_kernels(dev)
+    A, V, B, launches = phase_main(dev, args.seed)
+    table = phase_timing(dev, A, V, B, launches)
+    phase_profile(dev, A, V, B)
+    log(f"total {time.perf_counter() - t0:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": table}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

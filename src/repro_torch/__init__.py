@@ -1,0 +1,18 @@
+"""repro_torch — DX100's Indirect Access path on PyTorch and CUDA (Hopper).
+
+The counterpart of the JAX package ``repro``, module for module:
+``repro_torch.core`` (ISA, engine, compiler, reorder, bulk ops) and
+``repro_torch.kernels`` (hand-written CUDA kernels with plain PyTorch
+versions). Entry points run on the CUDA device unless given
+``device="cpu"``.
+"""
+from repro_torch.core import (Access, BinOp, Compare, Engine, LegalityError,
+                              Load, Pattern, RangeLoop, Var, bulk_gather,
+                              bulk_rmw, bulk_scatter, compile_pattern,
+                              run_tiled)
+
+__all__ = [
+    "Engine", "bulk_gather", "bulk_scatter", "bulk_rmw", "compile_pattern",
+    "run_tiled", "Pattern", "Access", "Load", "BinOp", "Compare",
+    "RangeLoop", "Var", "LegalityError",
+]

@@ -1,0 +1,174 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked ``cuda`` and skips where
+``torch.cuda.is_available()`` is False. The file imports neither JAX nor
+the JAX package, so it runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+(``--noconftest``: the repository's root conftest imports JAX.)
+
+Tolerance: gathers, integer RMWs and float MIN/MAX bit for bit; float
+ADD/MUL rtol=1e-5/atol=1e-6 (f32) and rtol=1e-2/atol=1e-2 (bf16, one ulp),
+since the plain version's ``index_add_`` may sum in another order.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bulk_gather, bulk_rmw, coalesce, \
+    make_row_table_plan
+from repro_torch.kernels.gather import gather as gk
+from repro_torch.kernels.gather import ops as gops
+from repro_torch.kernels.scatter_rmw import ops as sops
+from repro_torch.kernels.scatter_rmw import ref as sref
+from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+
+N, BLOCK_ROWS, LANES = 777, 128, 32          # 777 rows: a partial last block
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def _rmw_stream(rng, n, t):
+    """Sorted, unique destinations framed by out-of-range ones (negative
+    at the head, past the end at the tail), as bulk_rmw hands them on."""
+    dest = np.unique(rng.integers(0, n, size=t))
+    k = max(1, len(dest) // 16)
+    return np.concatenate([-rng.integers(1, 5, size=k)[::-1] * 7, dest,
+                           n + rng.integers(0, 5, size=k)]).astype(np.int32)
+
+
+def _values(rng, shape, dtype, op):
+    if dtype in (torch.int32, "u32"):
+        return torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, size=shape,
+                                            dtype=np.int64).astype(np.int32))
+    x = rng.normal(size=shape).astype(np.float32)
+    if op == "MUL":
+        x = 1 + x / 64
+    x[3, :2] = np.nan
+    return torch.as_tensor(x).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [8, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int32])
+def test_gather_kernel_on_card(cuda, dtype, d):
+    rng = np.random.default_rng(d)
+    table = (torch.as_tensor(rng.normal(size=(N, d)).astype(np.float32))
+             * 100).to(dtype).to(cuda)
+    idx = torch.as_tensor(rng.integers(0, N, size=300).astype(np.int32))
+    idx[:3] = torch.tensor([N - 1, 0, N - 1])
+    plan = make_row_table_plan(coalesce(idx.to(cuda))[0], n_rows=896,
+                               block_rows=BLOCK_ROWS, lanes=LANES)
+    before = gk.launches
+    got = gops.row_table_gather(table, plan)
+    torch.cuda.synchronize()
+    assert gk.launches == before + 1
+    assert torch.equal(got, gops.row_table_gather(table, plan, use_ref=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dtype", [
+    *[(op, torch.int32) for op in ("ADD", "MIN", "MAX", "AND", "OR", "XOR",
+                                   "MUL")],
+    *[(op, dt) for dt in (torch.float32, torch.bfloat16)
+      for op in ("ADD", "MIN", "MAX", "MUL")],
+    ("MIN", "u32"), ("MAX", "u32")], ids=str)
+def test_rmw_kernel_on_card(cuda, op, dtype):
+    rng = np.random.default_rng(1)
+    unsigned = dtype == "u32"
+    d = 64
+    table = _values(rng, (N, d), dtype, "ADD").to(cuda)
+    dest = torch.as_tensor(_rmw_stream(rng, N, 300)).to(cuda)
+    vals = _values(rng, (dest.shape[0], d), dtype, op).to(cuda)
+    kw = dict(op=op, block_rows=BLOCK_ROWS, lanes=LANES, unsigned=unsigned)
+    before = sk.launches
+    keep = table.clone()
+    got = sops.row_table_rmw(table, dest, vals, **kw)
+    torch.cuda.synchronize()
+    assert sk.launches == before + 1
+    torch.testing.assert_close(table, keep, rtol=0.0, atol=0.0,
+                               equal_nan=True)     # input not mutated
+    want = sops.row_table_rmw(table, dest, vals, use_ref=True, **kw)
+    if got.is_floating_point():
+        tol = dict(rtol=0.0, atol=0.0)
+        if op in ("ADD", "MUL"):
+            tol = (dict(rtol=1e-5, atol=1e-6) if got.dtype == torch.float32
+                   else dict(rtol=1e-2, atol=1e-2))
+        torch.testing.assert_close(got, want, equal_nan=True, **tol)
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ADD", "MUL", "XOR"])
+def test_rmw_kernel_repeated_rows_on_card(cuda, op):
+    """A plan of a sorted stream whose rows repeat (a run longer than a
+    tile) with a real value on every lane, padded ones included: every
+    update of a row lands. Integer ops: bit for bit."""
+    rng = np.random.default_rng(6)
+    n, d, br, lanes = 896, 16, 128, 32
+    idx = np.sort(np.concatenate([rng.integers(0, n, size=500),
+                                  np.full(70, 130)])).astype(np.int32)
+    plan = make_row_table_plan(torch.as_tensor(idx, device=cuda), n_rows=n,
+                               block_rows=br, lanes=lanes)
+    table = _values(rng, (n, d), torch.int32, op).to(cuda)
+    vals = _values(rng, (plan.num_tiles * lanes, d), torch.int32, op).to(cuda)
+    args = (plan.tile_block, plan.tile_first.to(torch.int32), plan.offsets,
+            vals)
+    kw = dict(block_rows=br, lanes=lanes, op=op)
+    got = sk.row_table_rmw_(table.clone(), *args, **kw)
+    assert torch.equal(got, sref.row_table_rmw_ref_(table.clone(), *args,
+                                                    **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["ADD", "MAX"])
+def test_bulk_ops_kernel_path_on_card(cuda, op):
+    """bulk_gather / bulk_rmw with use_kernel=True (the kernels) against
+    use_kernel=False (plain PyTorch) on a duplicate-heavy stream with
+    out-of-range indices."""
+    rng = np.random.default_rng(4)
+    n, d = 3000, 16
+    table = torch.as_tensor(rng.normal(size=(n, d)).astype(np.float32),
+                            device=cuda)
+    idx = torch.as_tensor(
+        (rng.zipf(1.2, size=5000) % (n + 40) - 20).astype(np.int32),
+        device=cuda)
+    vals = torch.as_tensor(rng.normal(size=(5000, d)).astype(np.float32),
+                           device=cuda)
+    g0, r0 = gk.launches, sk.launches
+    got = bulk_gather(table, idx, use_kernel=True, block_rows=256, lanes=64,
+                      device=cuda)
+    assert torch.equal(got, bulk_gather(table, idx, device=cuda))
+    got = bulk_rmw(table, idx, vals, op=op, use_kernel=True, block_rows=256,
+                   lanes=64, device=cuda)
+    want = bulk_rmw(table, idx, vals, op=op, device=cuda)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    torch.cuda.synchronize()
+    assert (gk.launches - g0, sk.launches - r0) == (1, 1)
+
+
+@pytest.mark.cuda
+def test_wrappers_raise_on_card_instead_of_falling_back(cuda):
+    table = torch.zeros((128, 4), dtype=torch.float64, device=cuda)
+    plan = make_row_table_plan(torch.arange(0, 128, 5, dtype=torch.int32,
+                                            device=cuda),
+                               n_rows=128, block_rows=64, lanes=8)
+    vals = torch.zeros((plan.num_tiles * 8, 4), dtype=torch.float64,
+                       device=cuda)
+    with pytest.raises(TypeError, match="unsupported table dtype"):
+        sk.row_table_rmw_(table.clone(), plan.tile_block,
+                          plan.tile_first.to(torch.int32), plan.offsets,
+                          vals, block_rows=64, lanes=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.row_table_gather(table.float().t().contiguous().t(),
+                            plan.tile_block, plan.offsets, block_rows=64,
+                            lanes=8)
