@@ -14,7 +14,12 @@ the script exits non-zero without its result line:
               and ADD/MIN/MAX/MUL on f32 and bf16, with negative,
               past-the-end and duplicate-after-clamp destinations, and on
               a plan whose rows repeat (runs across tiles) with a real
-              value on every lane.
+              value on every lane; then, bit for bit against a loop over
+              the plan's lanes (``sequential_rmw``), the plans that split
+              the RMW kernel's lanes between its two passes: a hot block
+              of 5,000 lanes, a block with every row updated, real updates
+              at offset 0 beside padding (-0.0 and NaN results), long
+              identity runs on rows 0 and n-1, and 12-byte rows.
   3. main     the Indirect Access path through the port's entry points
               (``run_tiled`` on ``Engine(tile_size=16384, use_kernel=True)``)
               on a row table A of 2^20 x 128 f32 with 2^21 lookups from a
@@ -30,15 +35,18 @@ the script exits non-zero without its result line:
               beside its byte bound, its plain version and a library call;
               the RMW kernel, its plain version and ``index_add_`` each
               update their own copy of the table in place, made before
-              the timed loop.
+              the timed loop. The RMW kernel and ``index_add_`` are also
+              timed on one engine tile of the uniform stream (own line).
   5. profile  torch.profiler over four engine tiles (zipf) of each pattern
               on the kernel path: the device's busy share, the top kernels
-              by device time and the top operators by host time.
+              by device time, each of the port's own kernels by name, and
+              the top operators by host time.
 
 Tolerances: gathers and integer RMWs bit for bit; float MIN/MAX bit for bit
-(NaN where NaN); float ADD/MUL RMW rtol=1e-5/atol=1e-6 in phase 2 (f32;
-bf16 one ulp, rtol=1e-2) and rtol=1e-4/atol=1e-2 on the main path, whose
-duplicate-heavy zipf rows are summed with atomics in another order.
+(NaN where NaN); the RMW aliasing plans bit for bit, floats included; float
+ADD/MUL RMW rtol=1e-5/atol=1e-6 in phase 2 (f32; bf16 one ulp, rtol=1e-2)
+and rtol=1e-4/atol=1e-2 on the main path, whose duplicate-heavy zipf rows
+are summed with atomics in another order.
 
 The last two lines are the kernel table (JSON) and
 {"ok": true, "device": {...}}.
@@ -211,6 +219,7 @@ def phase_kernels(dev):
         assert_match(f"rmw {op} {dtype}", got, want, **tol)
         checked += 1
     checked += check_rmw_duplicates(dev, gen)
+    checked += check_rmw_aliasing(dev)
     sync()
     log(f"phase 2 kernels: {checked} kernel-vs-plain checks passed")
 
@@ -251,6 +260,155 @@ def check_rmw_duplicates(dev, gen) -> int:
                      sref.row_table_rmw_ref_(table.clone(), *args, vals,
                                              **kw))
         checked += 1
+    return checked
+
+
+RMW_ALIAS_ROWS, RMW_ALIAS_BLOCK = 4096, 1024
+
+
+def rmw_aliasing_cases():
+    """Streams on which lanes alias rows the way the RMW kernel's two
+    passes split them (single-writer lanes applied by the streaming pass,
+    the rest in plan order by the chains pass), on a table of 4096 rows in
+    blocks of 1024. Yields ``(name, d, lanes, dest, vals)``: ``vals`` (f32,
+    one row per destination) means plan the sorted, unique ``dest`` as
+    bulk_rmw does (``plan_updates``: identity on padded, clamped and
+    empty-segment lanes); ``vals=None`` means a plan of the sorted
+    ``dest`` with duplicates and a real value on every lane, padded ones
+    included."""
+    import numpy as np
+    rng = np.random.default_rng(12)
+    n = RMW_ALIAS_ROWS
+    # a hot block: 5,000 lanes on block 1 (> 4,096: two compaction windows
+    # of the chains pass, many stream warps), single rows and 20 hot ones
+    hot = np.sort(np.concatenate([
+        1024 + rng.integers(0, 1024, size=3000),
+        1024 + rng.integers(0, 20, size=2000) * 37,
+        rng.integers(0, n, size=300)]))
+    yield "hot block", 64, 256, hot, None
+    # every row of block 2 updated once, plus a few rows elsewhere
+    full = np.unique(np.concatenate([np.arange(2048, 3072),
+                                     rng.integers(0, n, size=100)]))
+    yield "full block", 128, 256, full, \
+        rng.normal(size=(len(full), 128)).astype(np.float32)
+    # real updates at offset 0: block 1 has padding lanes after its lanes
+    # (-0.0 + -0.0, then the +0.0 identity), block 2 is exactly one full
+    # tile (-0.0 stays -0.0); NaN in the table and in the values
+    sz = np.unique(np.concatenate([[1024, 1030, 1031, 1500],
+                                   2048 + np.arange(256), [3072, 3073]]))
+    v = rng.normal(size=(len(sz), 64)).astype(np.float32)
+    v[np.isin(sz, [1024, 2048, 3072])] = -0.0
+    v[np.searchsorted(sz, 1500), :3] = np.nan
+    yield "offset 0 with signed zeros and NaN", 64, 256, sz, v
+    # long identity runs on rows 0 and n-1 across tile boundaries: 700
+    # negative destinations before a real update of row 0, 900 past the
+    # end (empty segments) after one of row n-1, all clamped
+    ends = np.concatenate([-np.arange(700, 0, -1), [0],
+                           np.unique(rng.integers(1, n - 1, size=200)),
+                           [n - 1], np.full(900, n)])
+    yield "identity runs on rows 0 and n-1", 64, 64, ends, \
+        rng.normal(size=(len(ends), 64)).astype(np.float32)
+    # rows that are not a whole number of 16-byte words: the scalar path
+    yield "12-byte rows, hot block", 3, 256, hot, None
+    yield "12-byte rows, identity runs", 3, 64, ends, \
+        rng.normal(size=(len(ends), 3)).astype(np.float32)
+
+
+def sequential_rmw(table, tile_block, offsets, vals, *, block_rows, op):
+    """The function the RMW kernel computes, as a loop over the plan's
+    lanes in order, on the tensors' device: each lane updates its row with
+    one elementwise op (the kernel's float rounding; MIN/MAX propagate the
+    table's NaN first, then the value's). Rows outside the table drop."""
+    import torch
+    rows = (tile_block[:, None].long() * block_rows + offsets).reshape(-1)
+    n = table.shape[0]
+
+    def fold(a, b):
+        if op == "ADD":
+            return a + b
+        if op == "MUL":
+            return a * b
+        if op == "XOR":
+            return a ^ b
+        pick = b < a if op == "MIN" else b > a
+        if a.is_floating_point():
+            pick = ~torch.isnan(a) & (torch.isnan(b) | pick)
+        return torch.where(pick, b, a)
+
+    for lane, row in enumerate(rows.tolist()):
+        if 0 <= row < n:
+            table[row] = fold(table[row], vals[lane])
+    return table
+
+
+# (op, dtype) pairs of the aliasing checks
+RMW_ALIAS_OPS = (("ADD", "f32"), ("MIN", "f32"), ("MUL", "f32"),
+                 ("ADD", "bf16"), ("XOR", "i32"))
+
+
+def bits(t):
+    """A tensor's bits, for comparing floats bit for bit (-0.0, NaN)."""
+    import torch
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+def rmw_aliasing_inputs(dev, name, d, lanes, dest, vals, op, dt):
+    """The RMW kernel's arguments for one case of ``rmw_aliasing_cases``,
+    one op and one dtype: ``(table, tile_block, tile_first, offsets,
+    vals), kw``."""
+    import numpy as np
+    import torch
+    from repro_torch.core import make_row_table_plan
+    from repro_torch.kernels.scatter_rmw.ops import plan_updates
+    rng = np.random.default_rng(len(name) * 1000 + d)
+    n, br = RMW_ALIAS_ROWS, RMW_ALIAS_BLOCK
+
+    def typed(x, values=True):
+        x = torch.as_tensor(x, device=dev)
+        if dt == "i32":
+            return (x * 1e6).nan_to_num().to(torch.int32)
+        if op == "MUL" and values:
+            x = 1 + x / 64
+        return x.to(torch.bfloat16 if dt == "bf16" else torch.float32)
+
+    t = rng.normal(size=(n, d)).astype(np.float32)
+    t[[0, 1024, 2048, 3072, n - 1]] = -0.0
+    t[1030, :2] = np.nan
+    dest_t = torch.as_tensor(np.asarray(dest, dtype=np.int32), device=dev)
+    kw = dict(block_rows=br, lanes=lanes, op=op)
+    if vals is None:
+        plan = make_row_table_plan(dest_t, n_rows=n, block_rows=br,
+                                   lanes=lanes)
+        v = typed(rng.normal(size=(plan.num_tiles * lanes, d))
+                  .astype(np.float32))
+    else:
+        plan, v = plan_updates(n, dest_t, typed(vals), op=op, block_rows=br,
+                               lanes=lanes)
+    first = plan.tile_first.to(torch.int32)
+    return (typed(t, values=False), plan.tile_block, first, plan.offsets,
+            v), kw
+
+
+def check_rmw_aliasing(dev) -> int:
+    """The RMW kernel against ``sequential_rmw`` on ``rmw_aliasing_cases``,
+    bit for bit (``bits``), for f32 ADD/MIN/MUL, bf16 ADD and i32 XOR."""
+    import torch
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    checked = 0
+    for case in rmw_aliasing_cases():
+        for op, dt in RMW_ALIAS_OPS:
+            (table, tile_block, tile_first, offsets, vals), kw = \
+                rmw_aliasing_inputs(dev, *case, op, dt)
+            got = sk.row_table_rmw_(table.clone(), tile_block, tile_first,
+                                    offsets, vals, **kw)
+            want = sequential_rmw(table.clone(), tile_block, offsets, vals,
+                                  block_rows=kw["block_rows"], op=op)
+            if not torch.equal(bits(got), bits(want)):
+                bad = (bits(got) != bits(want)).any(1).nonzero()[:5]
+                raise AssertionError(
+                    f"rmw aliasing {case[0]} {op} {dt}: not bit for bit, "
+                    f"first rows {bad.reshape(-1).tolist()}")
+            checked += 1
     return checked
 
 
@@ -369,15 +527,37 @@ def phase_e2e(fast, plain, A, V, B, out0, lookups: int):
 
 # --- phase 4 ---------------------------------------------------------------
 
+def rmw_tile(A, V, idx, br: int = 1024, lanes: int = 256):
+    """The RMW kernel's inputs for one engine tile ``idx`` of ADD updates
+    from ``V``, as bulk_rmw hands them on (coalesced, planned with the bulk
+    ops' defaults), with the bytes its function must move: each lane's
+    value row and the plan read once, each touched table row read and
+    written once. Returns ``(args, kw, bytes, touched rows)``."""
+    import torch
+    from repro_torch.core.bulk_ops import coalesce_updates
+    from repro_torch.kernels.scatter_rmw.ops import plan_updates
+    idx = idx.clamp(0, ROWS - 1)
+    seg_dest, packed = coalesce_updates(idx, V[:idx.shape[0]], n=ROWS,
+                                        op="ADD")
+    plan, vals = plan_updates(ROWS, seg_dest, packed, op="ADD",
+                              block_rows=br, lanes=lanes)
+    rows = (plan.tile_block[:, None].long() * br + plan.offsets).reshape(-1)
+    touched = torch.unique(rows).numel()
+    row_bytes = A.shape[1] * A.element_size()
+    nbytes = (vals.numel() * vals.element_size() + 2 * touched * row_bytes
+              + plan.offsets.numel() * 4 + 2 * plan.tile_block.numel() * 4)
+    args = (plan.tile_block, plan.tile_first.to(torch.int32), plan.offsets,
+            vals)
+    return args, dict(block_rows=br, lanes=lanes, op="ADD"), nbytes, touched
+
+
 def phase_timing(dev, A, V, B, launches):
     import torch
     from repro_torch.core import coalesce, make_row_table_plan
-    from repro_torch.core.bulk_ops import coalesce_updates
     from repro_torch.kernels.gather import gather as gk
     from repro_torch.kernels.gather import ref as gref
     from repro_torch.kernels.scatter_rmw import ref as sref
     from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
-    from repro_torch.kernels.scatter_rmw.ops import plan_updates
 
     # one engine tile of the zipf stream, as bulk_gather / bulk_rmw see it
     idx = B["zipf"][:TILE].clamp(0, ROWS - 1)
@@ -412,12 +592,9 @@ def phase_timing(dev, A, V, B, launches):
         f"{valid_bytes / 1e6:.1f} MB of it valid rows")
 
     # the RMW kernel's inputs for the same tile, as bulk_rmw hands them on
-    seg_dest, packed = coalesce_updates(idx, V[:TILE], n=ROWS, op="ADD")
-    rplan, vals = plan_updates(ROWS, seg_dest, packed, op="ADD",
-                               block_rows=br, lanes=lanes)
-    first = rplan.tile_first.to(torch.int32)
-    r_args = (rplan.tile_block, first, rplan.offsets, vals)
-    r_kw = dict(block_rows=br, lanes=lanes, op="ADD")
+    r_args, r_kw, r_bytes, touched = rmw_tile(A, V, idx)
+    vals = r_args[-1]
+    rrows = (r_args[0][:, None].long() * br + r_args[2]).reshape(-1)
     # each updates its own copy of A in place, as the kernel does: no
     # table copy inside any timed call
     work, plain_work, lib_work = A.clone(), A.clone(), A.clone()
@@ -425,11 +602,6 @@ def phase_timing(dev, A, V, B, launches):
     r_err = max_abs_err(r_out, sref.row_table_rmw_ref_(plain_work, *r_args,
                                                        **r_kw))
     assert r_err <= 1e-4, r_err
-    rrows = (rplan.tile_block[:, None].long() * br
-             + rplan.offsets).reshape(-1)
-    touched = torch.unique(rrows).numel()
-    r_bytes = (vals.numel() * esize + 2 * touched * row_bytes
-               + rplan.offsets.numel() * 4 + 2 * rplan.tile_block.numel() * 4)
     table_rows.append(dict(
         name="row_table_rmw", route="cuda",
         source="src/repro_torch/kernels/csrc/row_table_rmw.cu",
@@ -441,9 +613,19 @@ def phase_timing(dev, A, V, B, launches):
         bound_ms=r_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
         library_ms=time_ms(lambda: lib_work.index_add_(0, rrows, vals),
                            ITERS)))
-    log(f"rmw plan: {rplan.num_tiles} tiles ({int(rplan.n_tiles)} valid), "
-        f"{touched} rows touched, {vals.numel() * esize / 1e6:.1f} MB of "
-        f"lane values read per launch")
+    log(f"rmw plan: {r_args[0].numel()} tiles, {touched} rows touched, "
+        f"{vals.numel() * esize / 1e6:.1f} MB of lane values read per "
+        f"launch")
+    # the same on one engine tile of the uniform stream (the zipf row above
+    # is the kernel table's)
+    u_args, u_kw, u_bytes, u_touched = rmw_tile(A, V, B["uniform"][:TILE])
+    u_rows = (u_args[0][:, None].long() * br + u_args[2]).reshape(-1)
+    u_ms = time_ms(lambda: sk.row_table_rmw_(work, *u_args, **u_kw), ITERS)
+    u_lib = time_ms(lambda: lib_work.index_add_(0, u_rows, u_args[-1]),
+                    ITERS)
+    log(f"kernel row_table_rmw uniform tile: {u_ms:.4f} ms (bound "
+        f"{u_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms by bytes), library "
+        f"{u_lib:.4f} ms, {u_touched} rows touched")
     for r in table_rows:
         log(f"kernel {r['name']}: {r['ms']:.4f} ms (bound {r['bound_ms']:.4f}"
             f" ms by {r['bound_by']}), plain {r['plain_ms']:.4f} ms, "
@@ -454,6 +636,10 @@ def phase_timing(dev, A, V, B, launches):
 
 
 # --- phase 5 ---------------------------------------------------------------
+
+# the __global__ functions of kernels/csrc, as the profiler names them
+PORT_KERNELS = ("row_table_gather_kernel", "rmw_stream", "rmw_chains")
+
 
 def _device_us(event) -> float:
     return getattr(event, "self_device_time_total", None) or \
@@ -497,6 +683,10 @@ def phase_profile(dev, A, V, B, tiles: int = 4):
             for e in sorted(rows, key=key, reverse=True)[:10]:
                 log(f"  top {what:6s} {key(e) / 1e3:9.3f} ms  "
                     f"x{e.count:<5d} {e.key[:70]}")
+        for e in kernels:           # each of the port's own kernels
+            if any(k in e.key for k in PORT_KERNELS):
+                log(f"  port kernel {_device_us(e) / 1e3:9.3f} ms  "
+                    f"x{e.count:<5d} {e.key[:90]}")
     sync()
 
 

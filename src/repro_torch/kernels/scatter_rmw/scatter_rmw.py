@@ -1,9 +1,11 @@
 """Row-table scatter-RMW kernel (Indirect Access unit, store/RMW path).
 
 Dual of the gather kernel: destinations arrive sorted and pre-reduced (the
-engine's coalesce stage leaves at most one update per row), so each table
-block ("DRAM row") receives all its updates from one CTA, in plan order —
-the paper's exclusive-writer bulk-store pipeline. Wraps
+engine's coalesce stage leaves at most one update per row), so most rows
+have one writer in their block's run and are updated by whichever warp
+streams their values; the few rows with several writers (a block's offset
+0, clamped and empty-segment lanes) are updated by one warp per block, in
+plan order — the paper's exclusive-writer bulk-store pipeline. Wraps
 ``csrc/row_table_rmw.cu`` (see the note there for the design).
 
 ``row_table_rmw_`` updates its ``table`` argument in place and returns it;
@@ -75,10 +77,11 @@ def _launch(table, tile_block, tile_first, offsets, vals, *,
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
     num_tiles = tile_block.shape[0]
-    # one byte per lane for the kernel's mark pass (apply the lane or not);
-    # dropping it after the launch is safe: the caching allocator reuses a
-    # freed block only in the order of its stream
-    scratch = torch.empty((num_tiles * lanes,), dtype=torch.uint8,
+    # one bit per lane for the kernel's streaming pass (left for the chains
+    # pass or not), in 32-bit words; dropping it after the launch is safe:
+    # the caching allocator reuses a freed block only in the order of its
+    # stream
+    scratch = torch.empty((-(-num_tiles * lanes // 32),), dtype=torch.int32,
                           device=table.device)
     lib = build.library(SOURCE)
     fn = lib.dx_row_table_rmw
@@ -108,7 +111,10 @@ def row_table_rmw_(table: torch.Tensor, tile_block: torch.Tensor,
       table:      (N, D), N % block_rows == 0; f32, bf16 or int32.
       tile_block: (num_tiles,) int32 — the row table, each block in one run.
       tile_first: (num_tiles,) int32 — 1 where a tile opens its block.
-      offsets:    (num_tiles, lanes) int32 within-block destinations.
+      offsets:    (num_tiles, lanes) int32 within-block destinations,
+                  laid out as ``make_row_table_plan`` lays out a sorted
+                  stream: within a block's run the valid offsets do not
+                  decrease and the padded lanes follow them at offset 0.
       vals:       (num_tiles * lanes, D) update rows in plan order; padded
                   lanes must hold the RMW identity.
       unsigned:   the int32 table holds u32 bits (MIN/MAX compare

@@ -11,8 +11,13 @@ the JAX package, so it runs on a machine that has only PyTorch:
 
 Tolerance: gathers, integer RMWs and float MIN/MAX bit for bit; float
 ADD/MUL rtol=1e-5/atol=1e-6 (f32) and rtol=1e-2/atol=1e-2 (bf16, one ulp),
-since the plain version's ``index_add_`` may sum in another order.
+since the plain version's ``index_add_`` may sum in another order. The
+RMW kernel's aliasing plans (``chip_smoke.rmw_aliasing_cases``) are held bit
+for bit, floats included, against a loop over the plan's lanes in order.
 """
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -26,6 +31,13 @@ from repro_torch.kernels.scatter_rmw import ref as sref
 from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
 
 N, BLOCK_ROWS, LANES = 777, 128, 32          # 777 rows: a partial last block
+
+# chip_smoke.py's aliasing cases and lane-by-lane loop (numpy and torch only)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(smoke)
+ALIAS_CASES = list(smoke.rmw_aliasing_cases())
 
 
 @pytest.fixture
@@ -172,3 +184,20 @@ def test_wrappers_raise_on_card_instead_of_falling_back(cuda):
         gk.row_table_gather(table.float().t().contiguous().t(),
                             plan.tile_block, plan.offsets, block_rows=64,
                             lanes=8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op,dt", smoke.RMW_ALIAS_OPS, ids=str)
+@pytest.mark.parametrize("case", ALIAS_CASES, ids=lambda c: c[0])
+def test_rmw_kernel_aliasing_bitwise_on_card(cuda, case, op, dt):
+    """Rows that more than one lane touches (offset 0 with padding, hot
+    blocks over many CTAs, identity runs on rows 0 and n-1, 12-byte rows):
+    the kernel against a loop over the plan's lanes in order, bit for bit
+    (-0.0 and NaN included)."""
+    (table, tile_block, tile_first, offsets, vals), kw = \
+        smoke.rmw_aliasing_inputs(cuda, *case, op, dt)
+    got = sk.row_table_rmw_(table.clone(), tile_block, tile_first, offsets,
+                            vals, **kw)
+    want = smoke.sequential_rmw(table.clone(), tile_block, offsets, vals,
+                                block_rows=kw["block_rows"], op=op)
+    assert torch.equal(smoke.bits(got), smoke.bits(want))

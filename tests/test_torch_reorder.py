@@ -147,3 +147,67 @@ def test_interleave_and_shard_helpers():
             reorder.shard_bulk_indices(_t(s), num_shards=3, n_rows=512),
             jr.shard_bulk_indices(jnp.asarray(s), num_shards=3, n_rows=512)):
         _eq(got, want)
+
+
+# --- the plan layout the RMW kernel relies on -------------------------------
+# (kernels/csrc/row_table_rmw.cu applies a lane at once when no neighbour in
+# its run shares its row and its offset is not 0; that is exact only if the
+# plan keeps these guarantees)
+
+LAYOUT_STREAMS = {
+    # name: (table rows, stream maker)
+    "out of range clamped": (200, lambda rng: np.concatenate([
+        -rng.integers(1, 50, size=30), rng.integers(0, 200, size=150),
+        200 + rng.integers(0, 50, size=40)])),
+    "empty segments": (300, lambda rng: rng.integers(0, 40, size=400)),
+    "partial last block": (250, lambda rng: rng.integers(0, 250, size=90)),
+    "one lane per block": (640, lambda rng: np.arange(5, 640, 64)),
+    "blocks over many tiles": (256, lambda rng: np.concatenate([
+        64 + rng.integers(0, 64, size=100), rng.integers(0, 256, size=20)])),
+}
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("name", sorted(LAYOUT_STREAMS))
+def test_rmw_plan_layout(name, seed):
+    """Through bulk_rmw's own steps (stores drop, coalesce_updates,
+    plan_updates): within each block's run the valid offsets do not
+    decrease; every invalid lane sits at offset 0, holds the identity and
+    comes after the run's valid lanes; tile_first opens each block exactly
+    once; so a row with offset > 0 is touched by consecutive lanes only."""
+    from repro_torch.core.bulk_ops import coalesce_updates
+    from repro_torch.core.isa import rmw_identity
+    from repro_torch.kernels.scatter_rmw.ops import plan_updates
+    n, make = LAYOUT_STREAMS[name]
+    rng = np.random.default_rng(seed)
+    block_rows, lanes, op = 64, 16, "MIN"
+    idx = torch.as_tensor(make(rng).astype(np.int32))
+    vals = torch.as_tensor(rng.normal(size=(idx.shape[0], 2))
+                           .astype(np.float32))
+    idx = torch.where((idx >= 0) & (idx < n), idx, n)     # stores drop
+    seg_dest, packed = coalesce_updates(idx, vals, n=n, op=op)
+    plan, v = plan_updates(n, seg_dest, packed, op=op,
+                           block_rows=block_rows, lanes=lanes)
+    ident = float(rmw_identity(op, torch.float32))
+    tile_block = plan.tile_block.numpy()
+    first = plan.tile_first.numpy()
+    offsets = plan.offsets.numpy()
+    valid = plan.valid.numpy()
+    v = v.numpy().reshape(plan.num_tiles, lanes, -1)
+    assert first[0] and all(first[1:] == (tile_block[1:] != tile_block[:-1]))
+    opened = tile_block[first]
+    assert len(set(opened.tolist())) == len(opened), "a block opened twice"
+    starts = np.flatnonzero(first).tolist() + [plan.num_tiles]
+    for t0, t1 in zip(starts[:-1], starts[1:]):
+        off = offsets[t0:t1].reshape(-1)
+        ok = valid[t0:t1].reshape(-1)
+        if not ok.all():
+            k = int(np.argmin(ok))               # first invalid lane
+            assert not ok[k:].any(), "a valid lane after an invalid one"
+        assert np.all(np.diff(off[ok]) >= 0), "valid offsets decrease"
+        assert np.all(off[~ok] == 0)
+        assert np.all(v[t0:t1].reshape(-1, v.shape[-1])[~ok] == ident)
+        for o in np.unique(off[off > 0]):
+            where = np.flatnonzero(off == o)
+            assert where[-1] - where[0] == len(where) - 1, \
+                f"offset {o} not on consecutive lanes"
