@@ -41,14 +41,36 @@ the script exits non-zero without its result line:
               on the kernel path: the device's busy share, the top kernels
               by device time, each of the port's own kernels by name, and
               the top operators by host time.
+  6. window   the multi-tenant path: ``Scheduler`` on
+              ``Engine(tile_size=16384, use_kernel=True)``, 8 tenants each
+              submitting a gather of 2^18 zipf(1.05) lookups of A, an RMW
+              ADD of 2^18 rows into a second 2^20 x 128 f32 table G and
+              one launch of the phase-3 gather program over an engine tile
+              (A shared by all: one batched group). Checked: gathers
+              against A[idx], G against index_add_ on a copy, each program
+              against the same program run alone, exactly two gather
+              launches (the batched ILD, the fused gather) and one RMW
+              launch, the executed plan the explained one, and a repeat
+              window hitting the plan cache. Then the warm window time
+              against the same submissions flushed one per window and
+              plain index_select / index_add_, the cross-tenant
+              coalescing factor, and under torch.profiler the device's
+              busy share and each scheduler stage's host time and device
+              span.
+  7. pipeline 16 such windows (integer-valued RMW values, so every sum is
+              exact) with a small matmul per window as compute, threading
+              G through the windows: DecoupledLoop(depth=2) and
+              run_sequential agree bit for bit and with the closed form;
+              both wall times.
 
 Tolerances: gathers and integer RMWs bit for bit; float MIN/MAX bit for bit
 (NaN where NaN); the RMW aliasing plans bit for bit, floats included; float
 ADD/MUL RMW rtol=1e-5/atol=1e-6 in phase 2 (f32; bf16 one ulp, rtol=1e-2)
-and rtol=1e-4/atol=1e-2 on the main path, whose duplicate-heavy zipf rows
-are summed with atomics in another order.
+and rtol=1e-4/atol=1e-2 on the main path and the window, whose
+duplicate-heavy zipf rows are summed with atomics in another order.
 
-The last two lines are the kernel table (JSON) and
+The last two lines are the kernel table (JSON; ``launches`` counts phase
+3's run, ``scheduler_launches`` phase 6's window) and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -690,6 +712,365 @@ def phase_profile(dev, A, V, B, tiles: int = 4):
     sync()
 
 
+# --- phase 6 ---------------------------------------------------------------
+
+TENANTS = 8                        # the survey's "shared across cores"
+TENANT_LOOKUPS = 2 ** 18           # per tenant and stream: 2^21 per window
+WINDOW_RUNS = 3                    # warm window runs per path
+PIPE_WINDOWS = 16                  # windows of the decoupled-loop run
+
+
+def window_data(dev, seed: int, *, integer_values: bool = False):
+    """Each tenant's seeded streams: a zipf(1.05) % ROWS gather stream,
+    another for its RMW ADD into G, its RMW values, and a second table G
+    of ROWS x WIDTH f32. With ``integer_values`` G and the values are
+    small integers held as floats, so every sum is exact in any order."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed + 100)
+    gen = torch.Generator(device=dev).manual_seed(seed + 100)
+
+    def stream():
+        return torch.from_numpy((rng.zipf(1.05, size=TENANT_LOOKUPS) % ROWS)
+                                .astype(np.int32)).to(dev)
+
+    if integer_values:
+        G = torch.randint(-8, 9, (ROWS, WIDTH), generator=gen,
+                          device=dev).float()
+        vals = [torch.randint(-4, 5, (TENANT_LOOKUPS, WIDTH), generator=gen,
+                              device=dev).float() for _ in range(TENANTS)]
+    else:
+        G = torch.randn(ROWS, WIDTH, generator=gen, device=dev)
+        vals = [torch.randn(TENANT_LOOKUPS, WIDTH, generator=gen, device=dev)
+                for _ in range(TENANTS)]
+    gathers = [stream() for _ in range(TENANTS)]
+    return {"G": G, "gather": gathers, "rmw": [stream()
+                                               for _ in range(TENANTS)],
+            "vals": vals,
+            # each tenant's program runs the phase-3 gather pattern over
+            # one engine tile of its own gather stream
+            "prog_B": [g[:TILE] for g in gathers]}
+
+
+class Window:
+    """Submits one multi-tenant window: per tenant a gather of A, an RMW
+    ADD into G and one launch of the gather program over an engine tile,
+    its A shared by every tenant."""
+
+    def __init__(self, dev, A, data):
+        import torch
+        from repro_torch.core import compile_pattern
+        self.A, self.data = A, data
+        self.prog, _ = compile_pattern(patterns()[0], tile_size=TILE)
+        self.iota = torch.arange(TILE, dtype=torch.int32, device=dev)
+        self.outs = [torch.zeros(TILE, WIDTH, device=dev)
+                     for _ in range(TENANTS)]
+        self.regs = {"tile_base": 0, "N": TILE, "tile_end": TILE}
+
+    def env(self, t):
+        return {"A": self.A, "B": self.data["prog_B"][t],
+                "out": self.outs[t], "__iota__": self.iota}
+
+    def submissions(self, G):
+        """(kind, tenant, submit(target) -> ticket) in submission order."""
+        d = self.data
+        for t in range(TENANTS):
+            name = f"core{t}"
+            yield "program", t, lambda s, t=t, name=name: s.submit(
+                self.prog, self.env(t), self.regs, tenant=name)
+            yield "gather", t, lambda s, t=t, name=name: s.submit_gather(
+                self.A, d["gather"][t], tenant=name)
+            yield "rmw", t, lambda s, t=t, name=name: s.submit_rmw(
+                G, d["rmw"][t], d["vals"][t], op="ADD", tenant=name)
+
+    def submit(self, target, G):
+        tickets = {"program": [], "gather": [], "rmw": []}
+        for kind, _, fn in self.submissions(G):
+            tickets[kind].append(fn(target))
+        return tickets
+
+
+def redeem(sched, tickets):
+    return {k: [sched.result(t) for t in v] for k, v in tickets.items()}
+
+
+def timed(fn):
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def check_window(win, G, results, report, ex, launches):
+    """The window's results: gathers bit for bit against A[idx], G within
+    the main path's tolerance of index_add_ on a copy, each program bit
+    for bit against the same program run alone on the port's Engine, the
+    kernels' launches on the fused and batched nodes, and the executed
+    plan the one explain() showed."""
+    import torch
+    from repro_torch.core import Engine
+    d, A = win.data, win.A
+    if report.plan is not ex.plan:
+        raise AssertionError("the executed plan is not the explained one")
+    (group,) = report.plan.fused("program_group")
+    (fused_gather,) = report.plan.fused("gather")
+    (fused_rmw,) = report.plan.fused("rmw")
+    if (group.backend, len(group.members), fused_gather.backend,
+            fused_rmw.backend) != ("vmap", TENANTS, "bulk", "bulk") or \
+            "A" not in group.shared or not report.groups[0].vmapped:
+        raise AssertionError(f"unexpected plan:\n{ex.render()}")
+    # one gather launch for the batched ILD of all lanes (A shared), one
+    # for the fused gather; one RMW launch for the fused RMW
+    want = {"row_table_gather": 2, "row_table_rmw": 1}
+    if launches != want:
+        raise AssertionError(f"window launches {launches}, want {want}")
+    for t, got in enumerate(results["gather"]):
+        assert_match(f"window gather core{t} vs A[idx]", got,
+                     A[d["gather"][t].long()])
+    want_g = G.clone().index_add_(0, torch.cat(d["rmw"]).long(),
+                                  torch.cat(d["vals"]))
+    for t, got in enumerate(results["rmw"]):
+        assert_match(f"window rmw core{t} vs index_add_", got, want_g,
+                     rtol=1e-4, atol=1e-2)
+        assert torch.isfinite(got).all()
+    alone = Engine(tile_size=TILE, use_kernel=True, device=A.device)
+    for t, (env, spd) in enumerate(results["program"]):
+        want_env, want_spd = alone.run(win.prog, win.env(t), win.regs)
+        for name in want_env:
+            assert_match(f"window program core{t} env[{name}] vs alone",
+                         env[name], want_env[name])
+        for name in want_spd:
+            assert_match(f"window program core{t} spd[{name}] vs alone",
+                         spd[name], want_spd[name])
+        assert_match(f"window program core{t} out vs A[B]", env["out"],
+                     A[d["prog_B"][t].long()])
+
+
+def phase_window(dev, A, seed: int):
+    """The multi-tenant window through the port's Scheduler on
+    Engine(tile_size=16384, use_kernel=True): checked, then timed against
+    the same submissions flushed one per window and against plain
+    index_select / index_add_ over the same streams, then profiled."""
+    import statistics
+    from repro_torch.core import Engine, Scheduler
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    data = window_data(dev, seed)
+    G = data["G"]
+    win = Window(dev, A, data)
+    sched = Scheduler(engine=Engine(tile_size=TILE, use_kernel=True,
+                                    device=dev))
+    tickets = win.submit(sched, G)
+    ex = sched.explain()
+    log("phase 6 window plan:\n" + ex.render())
+    gk.launches = 0
+    sk.launches = 0
+    report, first_ms = timed(sched.flush)
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    results = redeem(sched, tickets)
+    check_window(win, G, results, report, ex, launches)
+    gain, per, fused = next(iter(report.gather_coalescing.values()))
+    del results
+    # a repeat window replays the cached plan
+    tickets = win.submit(sched, G)
+    report2 = sched.flush()
+    redeem(sched, tickets)
+    if not report2.plan.cache_hit or sched.stats["plan_cache_hits"] != 1:
+        raise AssertionError(f"repeat window missed the plan cache: "
+                             f"{sched.stats}")
+
+    def fused_window():
+        tk = win.submit(sched, G)
+        sched.flush()
+        return redeem(sched, tk)
+
+    def one_per_window():
+        out = []
+        for _, _, fn in win.submissions(G):
+            t = fn(sched)
+            sched.flush()
+            out.append(sched.result(t))
+        return out
+
+    def plain():
+        d = data
+        out = [A.index_select(0, s) for s in d["gather"]]
+        g = G.clone()
+        for s, v in zip(d["rmw"], d["vals"]):
+            g.index_add_(0, s, v)
+        out += [A.index_select(0, b) for b in d["prog_B"]]
+        return out, g
+
+    times = {"fused window": [], "one per window": [], "plain torch": []}
+    for _ in range(WINDOW_RUNS):
+        for name, fn in (("fused window", fused_window),
+                         ("one per window", one_per_window),
+                         ("plain torch", plain)):
+            times[name].append(timed(fn)[1])
+    log(f"window: {TENANTS} tenants, {TENANTS * TENANT_LOOKUPS} gather "
+        f"lookups + {TENANTS * TENANT_LOOKUPS} RMW rows + {TENANTS} "
+        f"programs of {TILE} lookups; launches {launches}; first run "
+        f"{first_ms:.3f} ms")
+    for name, ms in times.items():
+        log(f"window {name:15s} warm median {statistics.median(ms):10.3f} "
+            f"ms, runs {' '.join(f'{t:.3f}' for t in ms)}")
+    log(f"window cross-tenant gather coalescing: gain {gain:.4f} "
+        f"({per} distinct rows summed per tenant, {fused} in the fused "
+        f"stream)")
+    phase_window_profile(dev, fused_window)
+    sync()
+    return win, launches
+
+
+# the scheduler's stages, each timed as a span on the host under the
+# profiler (the span holds the host while the stage waits for the device)
+WINDOW_SPANS = (("submit", ("submit", "submit_gather", "submit_rmw")),
+                ("lower", ("_lower_pending",)),
+                ("emit programs", ("_execute_group",)),
+                ("emit gathers", ("_execute_gathers",)),
+                ("emit rmws", ("_execute_rmws",)))
+
+
+def log_window_stages(events):
+    """Per scheduler stage (``WINDOW_SPANS``): its host time, the host
+    synchronisations and kernel launches inside it, and on the device
+    the span from its first kernel to its last and the kernel time in
+    that span. A span shows twice in the trace: on the host, and as a
+    device-side annotation."""
+    from torch.autograd import DeviceType
+
+    def on_card(e):
+        return e.device_type == DeviceType.CUDA
+
+    def inside(e, spans):
+        return any(s.time_range.start <= e.time_range.start
+                   and e.time_range.end <= s.time_range.end for s in spans)
+
+    def ms(evs):
+        return sum(e.time_range.elapsed_us() for e in evs) / 1e3
+
+    spans = [e for e in events if e.name.startswith("window::")]
+    kernels = [e for e in events if on_card(e) and e not in spans]
+    syncs = [e for e in events if not on_card(e) and e.name in (
+        "cudaStreamSynchronize", "cudaEventSynchronize",
+        "cudaDeviceSynchronize")]
+    launches = [e for e in events if e.name == "cudaLaunchKernel"]
+    for label, _ in WINDOW_SPANS:
+        name = f"window::{label}"
+        host = [e for e in spans if e.name == name and not on_card(e)]
+        card = [e for e in spans if e.name == name and on_card(e)]
+        in_syncs = [e for e in syncs if inside(e, host)]
+        log(f"  stage {label:14s} host {ms(host):8.3f} ms (x{len(host)}; "
+            f"{len(in_syncs)} syncs {ms(in_syncs):.3f} ms, "
+            f"{sum(inside(e, host) for e in launches)} launches); device "
+            f"span {ms(card):8.3f} ms, kernels "
+            f"{ms([e for e in kernels if inside(e, card)]):8.3f} ms")
+    outside = [e for e in syncs if not inside(e, [e for e in spans
+                                                  if not on_card(e)])]
+    log(f"  stage {'(outside)':14s} {len(outside)} syncs "
+        f"{ms(outside):.3f} ms; all kernels {ms(kernels):.3f} ms")
+
+
+def phase_window_profile(dev, fused_window):
+    """The device's busy share over one warm fused window, and the host
+    time of each scheduler stage in it (``WINDOW_SPANS``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    from repro_torch.core.scheduler import Scheduler
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    saved = {}
+    for label, attrs in WINDOW_SPANS:
+        for attr in attrs:
+            saved[attr] = fn = getattr(Scheduler, attr)
+
+            def span(self, *a, _fn=fn, _label=label, **kw):
+                with record_function(f"window::{_label}"):
+                    return _fn(self, *a, **kw)
+            setattr(Scheduler, attr, span)
+    try:
+        with profile(activities=acts) as prof:
+            _, ms = timed(fused_window)
+    finally:
+        for attr, fn in saved.items():
+            setattr(Scheduler, attr, fn)
+    log_window_stages(prof.events())
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("window::")]
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    ops = [e for e in events if e.device_type != DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    log(f"profile window: {ms:.3f} ms wall under the profiler; device "
+        f"kernels {busy:.3f} ms ({100 * busy / ms:.1f}% busy)")
+    for what, rows, key in (("kernel", kernels, _device_us),
+                            ("host", ops, lambda e: e.self_cpu_time_total)):
+        for e in sorted(rows, key=key, reverse=True)[:8]:
+            log(f"  top {what:6s} {key(e) / 1e3:9.3f} ms  "
+                f"x{e.count:<5d} {e.key[:70]}")
+    for e in kernels:
+        if any(k in e.key for k in PORT_KERNELS):
+            log(f"  port kernel {_device_us(e) / 1e3:9.3f} ms  "
+                f"x{e.count:<5d} {e.key[:90]}")
+
+
+# --- phase 7 ---------------------------------------------------------------
+
+def phase_pipeline(dev, A, seed: int):
+    """PIPE_WINDOWS multi-tenant windows with a small matmul per window as
+    compute, threading G through the windows' RMWs: DecoupledLoop(depth=2)
+    and run_sequential must agree bit for bit (the RMW values are
+    integers held as floats, so every sum is exact in any order), and G
+    must equal its start plus PIPE_WINDOWS times the window's updates."""
+    import torch
+    from repro_torch.core import Engine, Scheduler
+    from repro_torch.pipeline import DecoupledLoop, run_sequential
+    data = window_data(dev, seed + 1, integer_values=True)
+    win = Window(dev, A, data)
+    W = torch.randn(WIDTH, WIDTH,
+                    generator=torch.Generator(device=dev).manual_seed(seed),
+                    device=dev)
+
+    def access(loop, k, state):
+        return win.submit(loop, state[0])
+
+    def compute(k, state, res):
+        t = k % TENANTS
+        x = res["gather"][t][:1024] @ W
+        y = res["program"][t][0]["out"][:1024] @ W
+        return res["rmw"][0], state[1] + x.sum(0) + y.sum(0)
+
+    def run(kind):
+        sched = Scheduler(engine=Engine(tile_size=TILE, use_kernel=True,
+                                        device=dev))
+        state = (data["G"], torch.zeros(WIDTH, device=dev))
+        if kind == "decoupled":
+            return DecoupledLoop(sched, depth=2).run(
+                state, PIPE_WINDOWS, access, compute)
+        return run_sequential(sched, state, PIPE_WINDOWS, access, compute)
+
+    out, times = {}, {"sequential": [], "decoupled": []}
+    for kind in ("sequential", "decoupled", "decoupled", "sequential"):
+        out[kind], ms = timed(lambda: run(kind))
+        times[kind].append(ms)
+    for name in ("G", "acc"):
+        i = ("G", "acc").index(name)
+        if not torch.equal(out["decoupled"][i], out["sequential"][i]):
+            raise AssertionError(f"pipeline {name}: DecoupledLoop and "
+                                 "run_sequential differ")
+    step = torch.zeros_like(data["G"]).index_add_(
+        0, torch.cat(data["rmw"]).long(), torch.cat(data["vals"]))
+    assert_match("pipeline G vs start + windows x index_add_",
+                 out["decoupled"][0], data["G"] + PIPE_WINDOWS * step)
+    for name, ms in times.items():
+        log(f"pipeline {name:10s} {PIPE_WINDOWS} windows: "
+            f"{' '.join(f'{t:.3f}' for t in ms)} ms "
+            f"({sum(ms) / len(ms) / PIPE_WINDOWS:.3f} ms per window)")
+    sync()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -711,6 +1092,11 @@ def main(argv=None) -> int:
     A, V, B, launches = phase_main(dev, args.seed)
     table = phase_timing(dev, A, V, B, launches)
     phase_profile(dev, A, V, B)
+    del V, B
+    _, window_launches = phase_window(dev, A, args.seed)
+    for row in table:
+        row["scheduler_launches"] = window_launches[row["name"]]
+    phase_pipeline(dev, A, args.seed)
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -119,6 +119,28 @@ def segment_combine(vals, seg, *, num_segments: int, op: str,
 # gather
 # ---------------------------------------------------------------------------
 
+def gather_unique_rows(table: torch.Tensor, uniq: torch.Tensor, *,
+                       block_rows: int = 1024, lanes: int = 256):
+    """Rows of a 2-D ``table`` at the sorted indices ``uniq`` through the
+    row-table gather kernel (its plain version for CPU tensors), planned
+    over ``uniq`` as it is: no second sort. Returns ``(tiles, lane_of)``:
+    ``tiles`` is ``(num_tiles * lanes, D)`` in plan order and
+    ``tiles[lane_of[k]]`` is row ``uniq[k]``."""
+    from repro_torch.kernels.gather import ops as gops
+    plan = reorder.make_row_table_plan(
+        uniq, n_rows=table.shape[0], block_rows=block_rows, lanes=lanes)
+    tiles = gops.row_table_gather(table, plan)
+    # Each sorted position is served by exactly one valid lane, and the
+    # valid lanes serve them in order, so the k-th valid lane holds
+    # uniq[k]: a search over the running count of valid lanes finds it,
+    # and the caller reads rows with one gather through it (a scatter by
+    # src_pos would pile every invalid lane on one row)
+    served = torch.cumsum(plan.valid.reshape(-1), 0)
+    lane_of = torch.searchsorted(served, torch.arange(
+        1, uniq.shape[0] + 1, dtype=served.dtype, device=uniq.device))
+    return tiles, lane_of
+
+
 def bulk_gather(table: torch.Tensor, idx: torch.Tensor, *, sort: bool = True,
                 dedup: bool = True, use_kernel: bool = False,
                 block_rows: int = 1024, lanes: int = 256,
@@ -140,19 +162,8 @@ def bulk_gather(table: torch.Tensor, idx: torch.Tensor, *, sort: bool = True,
     if dedup:
         uniq, inv, _ = reorder.coalesce(flat_idx)
         if use_kernel and table.ndim == 2:
-            from repro_torch.kernels.gather import ops as gops
-            plan = reorder.make_row_table_plan(
-                uniq, n_rows=n, block_rows=block_rows, lanes=lanes)
-            packed_tiles = gops.row_table_gather(table, plan)
-            # packed_tiles: (num_tiles*lanes, D) in plan order. Each sorted
-            # unique position is served by exactly one valid lane, and the
-            # valid lanes serve them in order, so the k-th valid lane holds
-            # uniq[k]: a search over the running count of valid lanes finds
-            # it, and one gather through the inverse reads the rows (a
-            # scatter by src_pos would pile every invalid lane on one row)
-            served = torch.cumsum(plan.valid.reshape(-1), 0)
-            lane_of = torch.searchsorted(served, torch.arange(
-                1, uniq.shape[0] + 1, dtype=served.dtype, device=dev))
+            packed_tiles, lane_of = gather_unique_rows(
+                table, uniq, block_rows=block_rows, lanes=lanes)
             out = packed_tiles[lane_of[inv]]
         else:
             packed = table[uniq]          # sorted unique fetch ("scratchpad")

@@ -201,3 +201,84 @@ def test_rmw_kernel_aliasing_bitwise_on_card(cuda, case, op, dt):
     want = smoke.sequential_rmw(table.clone(), tile_block, offsets, vals,
                                 block_rows=kw["block_rows"], op=op)
     assert torch.equal(smoke.bits(got), smoke.bits(want))
+
+
+# ---------------------------------------------------------------------------
+# the scheduler's fused window on the card
+# ---------------------------------------------------------------------------
+
+def _window(sched, A, G, streams, vals):
+    """One window: a gather of A and an ADD into G from each stream."""
+    gathers = [sched.submit_gather(A, s, tenant=f"t{k}")
+               for k, s in enumerate(streams)]
+    rmws = [sched.submit_rmw(G, s, v, op="ADD", tenant=f"t{k}")
+            for k, (s, v) in enumerate(zip(streams, vals))]
+    report = sched.flush()
+    return report, [sched.result(t) for t in gathers], \
+        [sched.result(t) for t in rmws]
+
+
+@pytest.mark.cuda
+def test_fused_window_kernels_match_plain_on_card(cuda):
+    """A fused 2-D gather and RMW window through use_kernel=True equals
+    the same window with use_kernel=False (gathers bit for bit, the float
+    ADD within rtol=1e-4/atol=1e-3 of each other and of index_add_), and
+    both kernels' launch counters rise on it."""
+    from repro_torch.core import Engine, Scheduler
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    A = torch.randn(5000, 32, generator=gen, device=cuda)
+    G = torch.randn(5000, 32, generator=gen, device=cuda)
+    rng = np.random.default_rng(0)
+    streams = [torch.from_numpy((rng.zipf(1.2, size=3000) % 5100 - 50)
+                                .astype(np.int32)).to(cuda)
+               for _ in range(4)]
+    vals = [torch.randn(3000, 32, generator=gen, device=cuda)
+            for _ in range(4)]
+    out = {}
+    for use_kernel in (False, True):
+        gk.launches = sk.launches = 0
+        sched = Scheduler(engine=Engine(tile_size=4096,
+                                        use_kernel=use_kernel, device=cuda))
+        out[use_kernel] = _window(sched, A, G, streams, vals)
+        launched = (gk.launches, sk.launches)
+        assert (min(launched) > 0) == use_kernel, launched
+    (_, g0, r0), (report, g1, r1) = out[False], out[True]
+    assert report.plan.fused("gather")[0].backend == "bulk"
+    for s, a, b in zip(streams, g0, g1):
+        assert torch.equal(a, b)
+        assert torch.equal(b, A[s.long().clamp(0, 4999)])
+    idx = torch.cat(streams).long()
+    ok = (idx >= 0) & (idx < 5000)
+    want = G.clone().index_add_(0, idx[ok], torch.cat(vals)[ok])
+    torch.testing.assert_close(r1[0], r0[0], rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(r1[0], want, rtol=1e-4, atol=1e-3)
+    assert all(r is r1[0] for r in r1)          # end-of-window state
+
+
+@pytest.mark.cuda
+def test_flush_handle_polls_without_blocking_on_card(cuda):
+    """While the stream is held by a long sleep, poll() returns False at
+    once; result() then waits and returns the report. The window is one
+    duplicate-free gather submitted from NumPy, which the cost model
+    measures on the host and sends down the direct ("eager") path: a
+    coalesced window would wait for the stream inside flush_async, where
+    ``torch.unique`` sizes the distinct rows on the host."""
+    import time
+
+    from repro_torch.core import Engine, Scheduler
+    sched = Scheduler(engine=Engine(tile_size=1024, device=cuda))
+    A = torch.randn(1000, 8, device=cuda)
+    t = sched.submit_gather(A, np.arange(10, dtype=np.int32))
+    assert sched.explain().plan.fused("gather")[0].backend == "eager"
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)           # ~1 s of spinning
+    handle = sched.flush_async()
+    t0 = time.perf_counter()
+    assert handle.poll() is False
+    assert not handle.done
+    assert time.perf_counter() - t0 < 0.1     # poll did not wait
+    with pytest.raises(RuntimeError, match="in flight"):
+        sched.flush()
+    report = handle.result()
+    assert report is handle.report and handle.poll()
+    assert torch.equal(sched.result(t), A[:10])

@@ -117,8 +117,29 @@ def test_compile_cache_counters():
     assert int(env["hist"][0]) == 0          # inputs are not mutated
     exe({**env, "hist": torch.zeros(16, dtype=torch.int32)}, regs)
     assert exe.traces == 2                   # a new shape is a new trace
-    with pytest.raises(NotImplementedError):
-        eng.executable(prog, batch=2)
+    # a batched handle is its own cache entry; its lanes give the per-lane
+    # results bit for bit, the shared region read by both lanes
+    shared = frozenset({"one"})
+    bexe = eng.executable(prog, batch=2, shared=shared)
+    assert bexe is not exe
+    assert eng.executable(prog, batch=2, shared=shared) is bexe
+    keys = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 8, size=64).astype(np.int32))
+    envs = [env, {**env, "key": keys}]
+    regs_list = [regs, {"tile_base": 0, "N": 40, "tile_end": 40}]
+    outs = bexe.run_batch(envs, regs_list)
+    for lane_env, lane_regs, (got_env, got_spd) in zip(envs, regs_list,
+                                                       outs):
+        want_env, want_spd = exe(lane_env, lane_regs)
+        assert set(got_env) == set(want_env)
+        assert set(got_spd) == set(want_spd)
+        for name in want_env:
+            assert torch.equal(got_env[name], want_env[name]), name
+        for name in want_spd:
+            assert torch.equal(got_spd[name], want_spd[name]), name
+    assert outs[1][0]["one"] is envs[1]["one"]   # shared: passed back
+    with pytest.raises(TypeError):
+        bexe(env, regs)
 
 
 def test_missing_inputs_raise_dx001():
