@@ -62,15 +62,34 @@ the script exits non-zero without its result line:
               G through the windows: DecoupledLoop(depth=2) and
               run_sequential agree bit for bit and with the closed form;
               both wall times.
+  8. apps     the five Table-1 apps through ``repro_torch.apps`` at the
+              sizes of ``APP_SIZES``: SpMV on a NAS-CG-shaped matrix (2^21
+              rows, ~16 nonzeros each) and on 16-wide feature blocks
+              (2^20 rows), BFS on a GAP-urand-shaped graph (2^22 vertices,
+              degree 16), a hash-join probe (2^22 probes of a 2^20-bucket
+              table), an embedding bag (2^21 x 128 f32 table, 4096 bags x
+              64 lanes, 8 tenants) and paged-KV decode (8 KV heads x 128,
+              page size 16, 64 sequences, 8 tenants, the pool grown
+              mid-flight). Each runs pipelined on an AccessService over
+              Engine(tile_size=16384, use_kernel=True), sequentially on
+              the same, and eagerly on the plain path: every result bit for
+              bit its host oracle (scipy's CSR product, a level-by-level
+              NumPy BFS, ``ht_key[probe & (m-1)] == probe``, the apps' own
+              loop oracles); spmv_block, embedding_bag and kv_serve must
+              launch the gather kernel and the last two the RMW kernel.
+              Then each path's warm wall time and, under torch.profiler,
+              one pipelined run's busy share, host syncs and top kernels.
 
-Tolerances: gathers and integer RMWs bit for bit; float MIN/MAX bit for bit
-(NaN where NaN); the RMW aliasing plans bit for bit, floats included; float
+Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
+for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
+plans bit for bit, floats included; float
 ADD/MUL RMW rtol=1e-5/atol=1e-6 in phase 2 (f32; bf16 one ulp, rtol=1e-2)
 and rtol=1e-4/atol=1e-2 on the main path and the window, whose
 duplicate-heavy zipf rows are summed with atomics in another order.
 
 The last two lines are the kernel table (JSON; ``launches`` counts phase
-3's run, ``scheduler_launches`` phase 6's window) and
+3's run, ``scheduler_launches`` phase 6's window, ``app_launches`` each
+app's checked pipelined run in phase 8) and
 {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
@@ -82,6 +101,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3, NVIDIA data sheet
@@ -1071,6 +1091,308 @@ def phase_pipeline(dev, A, seed: int):
     sync()
 
 
+# --- phase 8 ---------------------------------------------------------------
+
+APP_RUNS = 3                       # warm runs per path, after one warm-up
+# each app at a size its users run; the sizes are phase 8's only knobs,
+# so a rehearsal on the CPU shrinks them (widths d, page_size, lanes are
+# part of each configuration and never cut)
+APP_SIZES = {
+    "spmv_cg": dict(n=2 ** 21, avg_nnz=16, d=1, iters=6),
+    "spmv_block": dict(n=2 ** 20, avg_nnz=16, d=16, iters=6),
+    "bfs": dict(n=2 ** 22, avg_deg=16, levels=8),
+    "hashjoin": dict(n_build=2 ** 19, log2_buckets=20, n_probe=2 ** 22,
+                     tile=TILE, tiles_per_window=4),
+    "embedding_bag": dict(vocab=2 ** 21, d=128, n_bags=4096, lanes=64,
+                          n_tenants=8, n_steps=4),
+    "kv_serve": dict(d=1024, page_size=16, prefix_pages=64, max_prompt=512,
+                     n_seqs=64, n_tenants=8, n_steps=16, growth_pages=64),
+}
+# each configuration's public source, and what was cut from it
+APP_SOURCES = {
+    "spmv_cg": ("NAS CG's random sparse matrix (~16 nonzeros per row)",
+                None),
+    "spmv_block": ("PageRank over 16-wide feature blocks (the reference "
+                   "app's d > 1 case)", None),
+    "bfs": ("GAP urand: uniform random graph, degree 16",
+            "vertices 2^27 -> 2^22 (the run's time)"),
+    "hashjoin": ("build side bounded by make_problem's 2^20 key universe",
+                 None),
+    "embedding_bag": ("MLPerf DLRM-DCNv2: embedding width 128, multi-hot "
+                      "bags", None),
+    "kv_serve": ("Llama-3-8B config.json: 8 KV heads x head_dim 128 (one "
+                 "layer); vLLM's default block size 16", None),
+}
+# the apps whose tables are 2-D row tables, and the kernels they must reach
+APP_KERNELS = {"spmv_block": ("row_table_gather",),
+               "embedding_bag": ("row_table_gather", "row_table_rmw"),
+               "kv_serve": ("row_table_gather", "row_table_rmw")}
+
+
+def oracle_spmv(prob, iters: int):
+    """The SpMV recurrence with scipy's CSR product per iteration (the
+    same exact integer arithmetic as ``spmv.reference``, vectorised)."""
+    import numpy as np
+    import scipy.sparse
+    a = scipy.sparse.csr_matrix((prob.val, prob.col, prob.indptr),
+                                shape=(prob.n, prob.n))
+    x = prob.x0.copy()
+    for _ in range(iters):
+        y = (a @ x).astype(x.dtype)
+        if np.issubdtype(x.dtype, np.floating):
+            x = np.mod(np.floor(y * (1.0 / 32)), 256.0).astype(x.dtype)
+        else:
+            x = (y >> 5) & 255
+    return x
+
+
+def oracle_bfs(g, src: int, levels: int):
+    """``bfs.reference``'s semantics level by level: every frontier
+    vertex's adjacency range at once (``np.repeat`` over the ranges), the
+    neighbours not yet reached labelled with the level."""
+    import numpy as np
+    inf = np.int32(2 ** 30)
+    dist = np.full(g.n, inf, np.int32)
+    dist[src] = 0
+    frontier = np.asarray([src], np.int64)
+    for level in range(levels):
+        lo = g.indptr[frontier].astype(np.int64)
+        lens = g.indptr[frontier + 1] - lo
+        starts = np.repeat(lo - np.cumsum(lens) + lens, lens)
+        nbrs = g.adj[starts + np.arange(starts.shape[0])]
+        dist[nbrs[dist[nbrs] == inf]] = level + 1
+        frontier = np.flatnonzero(dist == level + 1)
+    return dist
+
+
+def oracle_hashjoin(prob):
+    """``hashjoin.reference`` in one vector step:
+    ``ht_key[probe & (m-1)] == probe``."""
+    import numpy as np
+    b = prob.probe & (prob.n_buckets - 1)
+    hit = prob.ht_key[b] == prob.probe
+    return (np.where(hit, prob.ht_val[b], -1).astype(np.int32),
+            int(hit.sum()))
+
+
+class AppCase:
+    """One phase-8 configuration: its problem, its runner
+    (``run(prob, mode=, service=, device=)``), its host oracle, and the
+    ``stats_out`` its runs fill (kv_serve's)."""
+
+    def __init__(self, name: str, make: Callable, run: Callable,
+                 oracle: Callable, stats: dict | None = None):
+        self.name, self.make, self.run, self.oracle = name, make, run, oracle
+        self.stats = {} if stats is None else stats
+
+
+def app_cases(seed: int):
+    """Phase 8's six configurations at ``APP_SIZES``."""
+    import dataclasses
+    from repro_torch.apps import bfs, embedding_bag, hashjoin, kv_serve, spmv
+    s = APP_SIZES
+    cases = []
+    for name in ("spmv_cg", "spmv_block"):
+        c = s[name]
+        cases.append(AppCase(
+            name, lambda c=c: spmv.make_problem(seed, n=c["n"],
+                                                avg_nnz=c["avg_nnz"],
+                                                d=c["d"]),
+            lambda prob, c=c, **kw: spmv.run(prob, c["iters"], **kw),
+            lambda prob, c=c: oracle_spmv(prob, c["iters"])))
+    c = s["bfs"]
+    cases.append(AppCase(
+        "bfs", lambda: bfs.make_graph(seed, n=c["n"], avg_deg=c["avg_deg"]),
+        lambda g, **kw: bfs.run(g, 0, levels=c["levels"], **kw),
+        lambda g: oracle_bfs(g, 0, c["levels"])))
+    h = s["hashjoin"]
+    cases.append(AppCase(
+        "hashjoin", lambda: hashjoin.make_problem(
+            seed, n_build=h["n_build"], n_probe=h["n_probe"],
+            log2_buckets=h["log2_buckets"]),
+        lambda prob, **kw: hashjoin.run(
+            prob, tile_size=h["tile"],
+            tiles_per_window=h["tiles_per_window"], **kw),
+        oracle_hashjoin))
+    e = s["embedding_bag"]
+    cases.append(AppCase(
+        "embedding_bag", lambda: embedding_bag.make_problem(
+            seed, vocab=e["vocab"], d=e["d"], n_bags=e["n_bags"],
+            lanes=e["lanes"], n_steps=e["n_steps"],
+            n_tenants=e["n_tenants"]),
+        embedding_bag.run, embedding_bag.reference))
+    k, stats = s["kv_serve"], {}
+    cases.append(AppCase(
+        "kv_serve", lambda: dataclasses.replace(kv_serve.make_problem(
+            seed, n_seqs=k["n_seqs"], n_tenants=k["n_tenants"],
+            page_size=k["page_size"], d=k["d"],
+            prefix_pages=k["prefix_pages"], max_prompt=k["max_prompt"],
+            max_steps=k["n_steps"]), growth_pages=k["growth_pages"]),
+        lambda prob, **kw: kv_serve.run(prob, k["n_steps"],
+                                        stats_out=stats, **kw),
+        lambda prob: kv_serve.reference(prob, k["n_steps"]), stats))
+    return cases
+
+
+def bitwise_equal(got, want) -> bool:
+    """Results of the apps (arrays, ints, tuples of them), bit for bit."""
+    import numpy as np
+    if isinstance(want, tuple):
+        return isinstance(got, tuple) and len(got) == len(want) and all(
+            bitwise_equal(g, w) for g, w in zip(got, want))
+    if isinstance(want, np.ndarray):
+        return (isinstance(got, np.ndarray) and got.dtype == want.dtype
+                and got.shape == want.shape
+                and got.tobytes() == want.tobytes())
+    return type(got) is type(want) and got == want
+
+
+def check_kv_growth(case, prob, svc):
+    """kv_serve's run grew the pool after prefill (mid-flight, between
+    decode windows), and the service's last access window fused one
+    gather across more than one tenant (the shared prefix pages)."""
+    from repro_torch.apps import kv_serve
+    st = kv_serve._PageState(prob)
+    kv_serve._prefill_streams(prob, st)
+    decode_start = st.cap_pages + prob.init_slack_pages
+    stats = case.stats
+    if stats["growths"] <= 0 or stats["final_pages"] <= decode_start:
+        raise AssertionError(f"kv_serve: the pool did not grow mid-flight "
+                             f"({stats}, {decode_start} pages at decode "
+                             f"start)")
+    spans = [len({m.ticket.tenant for m in g.members})
+             for g in svc.last_report.plan.fused("gather")]
+    if not any(n > 1 for n in spans):
+        raise AssertionError(f"kv_serve: no fused gather spans more than "
+                             f"one tenant (tenants per node {spans})")
+    return (f"growths {stats['growths']}, pages {decode_start} at decode "
+            f"start -> {stats['final_pages']}, t_cap {stats['t_cap']}, "
+            f"tenants per fused gather {spans}")
+
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaEventSynchronize",
+              "cudaDeviceSynchronize")
+
+
+def profile_app(dev, name, fn):
+    """One run of ``fn`` under torch.profiler, logged: wall ms, the
+    device's busy share (the time of kernels and copies on the device over
+    wall time), the host synchronisations and kernel launches, the copies
+    between host and device, the peak of allocated device memory, and the
+    top five device activities by time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+        torch.cuda.reset_peak_memory_stats(dev)
+    with profile(activities=acts) as prof:
+        _, ms = timed(fn)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = sum(_device_us(e) for e in kernels) / 1e3
+    syncs = sum(e.count for e in events if e.key in SYNC_CALLS)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    copies = {}
+    for way in ("HtoD", "DtoH"):
+        evs = [e for e in kernels if e.key.startswith(f"Memcpy {way}")]
+        copies[way] = (sum(e.count for e in evs),
+                       sum(_device_us(e) for e in evs) / 1e3)
+    log(f"profile app {name}: {ms:.3f} ms wall under the profiler, device "
+        f"{busy:.3f} ms ({100 * busy / ms:.1f}% busy), {syncs} host syncs, "
+        f"{launches} kernel launches; copies host->device "
+        f"{copies['HtoD'][0]} ({copies['HtoD'][1]:.3f} ms), device->host "
+        f"{copies['DtoH'][0]} ({copies['DtoH'][1]:.3f} ms); peak "
+        f"{peak:.2f} GiB allocated")
+    for e in sorted(kernels, key=_device_us, reverse=True)[:5]:
+        log(f"  top kernel {_device_us(e) / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:70]}")
+
+
+def phase_apps(dev, seed: int):
+    """The five Table-1 apps (six configurations) through the port's entry
+    points at full size. Each runs pipelined on an ``AccessService`` over
+    ``Scheduler(engine=Engine(tile_size=16384, use_kernel=True))`` and
+    must equal its host oracle bit for bit; the 2-D apps must launch the
+    kernels of ``APP_KERNELS`` (counts set to 0 just before that run). The
+    same must hold for the sequential kernel path and the eager plain
+    path. Then the warm wall time of the three paths (median of
+    APP_RUNS after the checked run), and one pipelined run under the
+    profiler. Returns each kernel's launches per app."""
+    import statistics
+    import torch
+    from repro_torch.core import Engine, Scheduler
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import AccessService
+    app_launches = {"row_table_gather": {}, "row_table_rmw": {}}
+    for case in app_cases(seed):
+        name = case.name
+        source, cut = APP_SOURCES[name]
+        log(f"app {name}: {APP_SIZES[name]}; source: {source}")
+        if cut:
+            log(f"reduced {name}: {cut}")
+        t0 = time.perf_counter()
+        prob = case.make()
+        t1 = time.perf_counter()
+        want = case.oracle(prob)
+        t2 = time.perf_counter()
+        log(f"app {name}: problem made in {t1 - t0:.1f} s, host oracle in "
+            f"{t2 - t1:.1f} s")
+        svc = AccessService(Scheduler(engine=Engine(
+            tile_size=TILE, use_kernel=True, device=dev)), auto_flush=0)
+        paths = {
+            "pipelined": lambda: case.run(prob, mode="pipelined",
+                                          service=svc),
+            "sequential": lambda: case.run(prob, mode="sequential",
+                                           service=svc),
+            "eager plain": lambda: case.run(prob, mode="eager", device=dev),
+        }
+        gk.launches = 0
+        sk.launches = 0
+        got, first = timed(paths["pipelined"])
+        launches = {"row_table_gather": gk.launches,
+                    "row_table_rmw": sk.launches}
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"app {name} pipelined: not bit for bit "
+                                 "the host oracle")
+        missing = [k for k in APP_KERNELS.get(name, ()) if launches[k] < 1]
+        if missing:
+            raise AssertionError(f"app {name}: {missing} never launched on "
+                                 f"the kernel path ({launches})")
+        for kernel, n in launches.items():
+            app_launches[kernel][name] = n
+        extra = check_kv_growth(case, prob, svc) if name == "kv_serve" \
+            else ""
+        times = {"pipelined": [], "sequential": [], "eager plain": []}
+        firsts = {"pipelined": first}
+        for path in ("sequential", "eager plain"):
+            got, firsts[path] = timed(paths[path])
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"app {name} {path}: not bit for bit "
+                                     "the host oracle")
+        del got
+        for _ in range(APP_RUNS):
+            for path, fn in paths.items():
+                times[path].append(timed(fn)[1])
+        log(f"app {name}: pipelined launches {launches}; bit for bit the "
+            f"host oracle on every path{'; ' + extra if extra else ''}")
+        for path, ms in times.items():
+            log(f"app {name:13s} {path:11s} warm median "
+                f"{statistics.median(ms):10.3f} ms, runs "
+                f"{' '.join(f'{t:.3f}' for t in ms)}; first "
+                f"{firsts[path]:.3f} ms")
+        profile_app(dev, name, paths["pipelined"])
+        del prob, want, svc, paths
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    sync()
+    return app_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1097,6 +1419,10 @@ def main(argv=None) -> int:
     for row in table:
         row["scheduler_launches"] = window_launches[row["name"]]
     phase_pipeline(dev, A, args.seed)
+    del A
+    app_launches = phase_apps(dev, args.seed)
+    for row in table:
+        row["app_launches"] = app_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

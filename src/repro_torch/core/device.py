@@ -25,3 +25,10 @@ def on(x, device: torch.device) -> torch.Tensor:
     """``x`` (tensor, NumPy array or sequence) as a tensor on ``device``;
     a no-op for a tensor already there."""
     return torch.as_tensor(x, device=device)
+
+
+def synchronize(device: torch.device) -> None:
+    """Wait for everything queued on ``device``'s current stream (a no-op
+    on the CPU, where every op has already run)."""
+    if device.type == "cuda":
+        torch.cuda.current_stream(device).synchronize()

@@ -37,8 +37,7 @@ from __future__ import annotations
 from collections import deque
 from typing import Callable, List, Optional, Sequence
 
-import torch
-
+from repro_torch.core.device import synchronize
 from repro_torch.core.scheduler import FlushHandle, Scheduler
 
 
@@ -188,14 +187,6 @@ class DecoupledLoop:
         return out
 
 
-def _device_barrier(target) -> None:
-    """Wait for everything queued on the engine device's current stream
-    (a no-op on the CPU, where every op ran as it was issued)."""
-    device = getattr(target, "scheduler", target).engine.device
-    if device.type == "cuda":
-        torch.cuda.current_stream(device).synchronize()
-
-
 def run_sequential(target, state, n_iters: int, access: Callable,
                    compute: Callable):
     """Strictly-coupled baseline: access, BARRIER, compute, BARRIER.
@@ -215,5 +206,5 @@ def run_sequential(target, state, n_iters: int, access: Callable,
             results = AccessWindow(loop._scheduler(), tickets,
                                    handle).redeem()
         state = compute(k, state, results)
-        _device_barrier(target)              # compute barrier
+        synchronize(loop._scheduler().engine.device)   # compute barrier
     return state

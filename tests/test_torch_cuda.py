@@ -282,3 +282,73 @@ def test_flush_handle_polls_without_blocking_on_card(cuda):
     report = handle.result()
     assert report is handle.report and handle.poll()
     assert torch.equal(sched.result(t), A[:10])
+
+
+# ---------------------------------------------------------------------------
+# the apps on the card
+# ---------------------------------------------------------------------------
+
+def _kernel_service(cuda, tile_size=16384):
+    from repro_torch.core import Engine, Scheduler
+    from repro_torch.serve import AccessService
+    return AccessService(Scheduler(engine=Engine(
+        tile_size=tile_size, use_kernel=True, device=cuda)), auto_flush=0)
+
+
+# (app, kernels its pipelined run must launch), as chip_smoke phase 8
+APP_KERNELS = [("spmv", ()), ("bfs", ()), ("hashjoin", ()),
+               ("embedding_bag", ("gather", "rmw")),
+               ("kv_serve", ("gather", "rmw"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["eager", "sequential", "pipelined"])
+@pytest.mark.parametrize("app,kernels", APP_KERNELS, ids=lambda a: str(a))
+def test_app_demo_on_card(cuda, app, kernels, mode):
+    """Each app's seeded demo on the card, bit for bit its NumPy oracle:
+    the scheduler modes on an AccessService over Engine(use_kernel=True),
+    which must launch the kernels of the 2-D apps, and the eager mode on
+    the plain path. The hash join's engine runs its programs' tile size
+    (256 in the demo), as the app's own service does."""
+    from repro_torch.apps import APPS
+    mod = APPS[app]
+    gk.launches = sk.launches = 0
+    if mode == "eager":
+        got = mod.demo(0, mode=mode, device=cuda)
+    else:
+        tile = 256 if app == "hashjoin" else 16384
+        got = mod.demo(0, mode=mode, service=_kernel_service(cuda, tile))
+    want = mod.demo_reference(0)
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+    launched = {"gather": gk.launches, "rmw": sk.launches}
+    for k in kernels if mode != "eager" else ():
+        assert launched[k] >= 1, launched
+
+
+@pytest.mark.cuda
+def test_spmv_block_launches_gather_kernel_on_card(cuda):
+    """The d > 1 SpMV gathers a 2-D row table: the gather kernel runs."""
+    from repro_torch.apps import spmv
+    prob = spmv.make_problem(1, n=700, d=4)
+    gk.launches = 0
+    got = spmv.run(prob, 6, service=_kernel_service(cuda))
+    np.testing.assert_array_equal(got, spmv.reference(prob, 6))
+    assert gk.launches == 6
+
+
+@pytest.mark.cuda
+def test_kv_serve_grows_and_coalesces_on_card(cuda):
+    """The pool grows during decode, and the last access window fuses one
+    gather across tenants (the shared prefix pages)."""
+    from repro_torch.apps import kv_serve
+    prob = kv_serve.make_problem(1)
+    st = kv_serve._PageState(prob)
+    kv_serve._prefill_streams(prob, st)
+    svc = _kernel_service(cuda)
+    stats = {}
+    got = kv_serve.run(prob, 6, service=svc, stats_out=stats)
+    np.testing.assert_array_equal(got, kv_serve.reference(prob, 6))
+    assert stats["final_pages"] > st.cap_pages + prob.init_slack_pages
+    assert any(len({m.ticket.tenant for m in g.members}) > 1
+               for g in svc.last_report.plan.fused("gather"))
