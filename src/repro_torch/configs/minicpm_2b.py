@@ -1,0 +1,10 @@
+"""minicpm-2b [dense]: 40L d_model=2304 36H (kv=36 => MHA) d_ff=5760
+vocab=122753 — WSD schedule (arch=llama-like). [arXiv:2404.06395; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="minicpm-2b", family="dense",
+    n_layers=40, d_model=2304, n_heads=36, n_kv_heads=36,
+    d_ff=5760, vocab=122753, head_dim=64,
+    rope_theta=1e4, schedule="wsd",
+)

@@ -74,3 +74,34 @@ def dtypes_of(env: Mapping) -> dict:
     """ISA dtype names of a NumPy environment, for ``Engine.run(dtypes=)``
     and ``env_to_numpy``."""
     return {k: isa_dtype(np.asarray(v).dtype) for k, v in env.items()}
+
+
+def params_from_numpy(tree, *, device, dtype=None):
+    """A parameter tree of NumPy arrays (the JAX package's pytree of dicts,
+    layers stacked on axis 0) as the port's params: the same keys and
+    layouts, every leaf a tensor on ``device``. ``dtype`` casts the
+    floating-point leaves; None keeps each leaf's own type."""
+    if isinstance(tree, Mapping):
+        return {k: params_from_numpy(v, device=device, dtype=dtype)
+                for k, v in tree.items()}
+    t = to_tensor(tree, device=device)
+    if dtype is not None and t.is_floating_point():
+        t = t.to(dtype)
+    return t
+
+
+# JAX's indexing rules, for ports of code that indexes with ``x[idx]`` and
+# ``x.at[idx]``: torch indexing asserts on the device where JAX wraps,
+# clamps or drops
+
+
+def jax_gather_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Where ``x[idx]`` reads in JAX: negatives wrap once, then clamp."""
+    return torch.where(idx < 0, idx + n, idx).clamp(0, n - 1)
+
+
+def jax_scatter_index(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Where ``x.at[idx]`` writes in JAX: negatives wrap once; what is
+    still outside ``[0, n)`` is dropped (routed to a spare row ``n``)."""
+    idx = torch.where(idx < 0, idx + n, idx)
+    return torch.where((idx >= 0) & (idx < n), idx, n)

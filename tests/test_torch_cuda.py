@@ -15,6 +15,7 @@ since the plain version's ``index_add_`` may sum in another order. The
 RMW kernel's aliasing plans (``chip_smoke.rmw_aliasing_cases``) are held bit
 for bit, floats included, against a loop over the plan's lanes in order.
 """
+import dataclasses
 import importlib.util
 from pathlib import Path
 
@@ -352,3 +353,74 @@ def test_kv_serve_grows_and_coalesces_on_card(cuda):
     assert stats["final_pages"] > st.cap_pages + prob.init_slack_pages
     assert any(len({m.ticket.tenant for m in g.members}) > 1
                for g in svc.last_report.plan.fused("gather"))
+
+
+# ---------------------------------------------------------------------------
+# the serving layer and the decoder on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_kv_pool_server_step_launches_kernels_on_card(cuda):
+    """A KvPoolServer on Engine(use_kernel=True) against the same server on
+    the CPU's plain path, bit for bit (integer-valued K/V): the prefill
+    window launches the RMW kernel, each decode window the gather kernel
+    (the fused page histories) and the RMW kernel (the appends)."""
+    from repro_torch.core import Engine, Scheduler
+    from repro_torch.serve import AccessService, KvPoolServer
+    rng = np.random.default_rng(4)
+    cpu = AccessService(Scheduler(engine=Engine(device="cpu")),
+                        auto_flush=0)
+    gk.launches = sk.launches = 0
+    srvs = [KvPoolServer(page_size=16, d=64, init_pages=4, growth_pages=2,
+                         service=svc) for svc in (_kernel_service(cuda), cpu)]
+    prefix = rng.integers(0, 8, size=(32, 128)).astype(np.float32)
+    prompts = [rng.integers(0, 8, size=(n, 128)).astype(np.float32)
+               for n in (5, 17, 40)]
+    for srv in srvs:
+        srv.create_prefix("sys", prefix)
+        for i, kv in enumerate(prompts):
+            srv.admit(f"s{i}", f"t{i % 2}", kv, prefix="sys")
+    assert sk.launches >= 1 and gk.launches == 0
+    for _ in range(3):
+        new = {f"s{i}": rng.integers(0, 8, size=128).astype(np.float32)
+               for i in range(3)}
+        (hc, _), (hp, _) = srvs[0].decode_batch(new), \
+            srvs[1].decode_batch(new)
+        for name in new:
+            assert torch.equal(hc[name].cpu(), hp[name])
+    assert torch.equal(srvs[0].pool.cpu(), srvs[1].pool)
+    assert srvs[0].stats() == srvs[1].stats()
+    assert srvs[0].stats()["growths"] > 0
+    assert gk.launches == 3 and sk.launches >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "dbrx-132b"])
+def test_decode_matches_forward_on_card(cuda, arch):
+    """The reduced config (f32) on the card: prefill and each decode step
+    against the full forward over the same tokens, within rtol=1e-4 /
+    atol=1e-4 (cuBLAS picks other reduction orders per shape); no kernel
+    of the port runs on this path. The MoE runs dropless (capacity for
+    every token): with a capacity bound, the prefill's 24 tokens and the
+    forward's 40 would overflow their experts differently."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    if cfg.n_experts:
+        cfg = dataclasses.replace(
+            cfg, capacity_factor=cfg.n_experts / cfg.top_k)
+    model = build_model(cfg, device=cuda)
+    params = model.init(0)
+    toks = torch.randint(0, 256, (2, 20), generator=torch.Generator(
+        device=cuda).manual_seed(1), device=cuda)
+    gk.launches = sk.launches = 0
+    full, _ = model.forward(params, {"tokens": toks})
+    cache = model.init_cache(2, 32)
+    got, cache = model.prefill(params, {"tokens": toks[:, :12]}, cache)
+    torch.testing.assert_close(got[:, 0], full[:, 11], rtol=1e-4, atol=1e-4)
+    for t in range(12, 20):
+        got, cache = model.decode_step(params, {"tokens": toks[:, t:t + 1]},
+                                       cache)
+        torch.testing.assert_close(got[:, 0], full[:, t], rtol=1e-4,
+                                   atol=1e-4)
+    assert gk.launches == sk.launches == 0

@@ -54,8 +54,13 @@ def port_modules():
 
 def test_port_and_smoke_import_without_jax_or_reference():
     mods = list(port_modules())
-    assert "repro_torch.apps.kv_serve" in mods
-    assert "repro_torch.serve.access_service" in mods
+    for name in ("apps.kv_serve", "serve.access_service", "serve.traffic",
+                 "serve.kv_driver", "serve.kv_cache", "serve.serve",
+                 "testing.fuzzer", "configs.base", "configs.qwen3_0_6b",
+                 "configs.dbrx_132b", "models.layers", "models.embedding",
+                 "models.moe", "models.remat", "models.transformer",
+                 "models.model"):
+        assert f"repro_torch.{name}" in mods
     proc = run_guarded(*mods)
     assert proc.returncode == 0, proc.stderr
     assert f"imported {len(mods)} modules" in proc.stdout
