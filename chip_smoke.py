@@ -110,6 +110,20 @@ the script exits non-zero without its result line:
               tolerance) the warm prefill ms per wave, decode ms per step,
               tokens/s and peak memory, and one run under the profiler.
               The model path launches neither kernel.
+ 11. sharded  ``ShardedEngine(mesh=m, use_kernel=True)`` for m in {1, 2,
+              4, 8} logical shards on this one card, over phase 3's A and
+              2^21-lookup zipf and uniform streams: gathers bit for bit
+              the single-device ``bulk_gather``, ADD (integer-valued f32)
+              and MIN (an i32 table) bit for bit ``bulk_rmw`` and
+              ``index_add`` / ``scatter_reduce``, ``ShardStats`` against
+              NumPy owner counts, B1/B2 launches exactly one per call;
+              per m the warm times against the single-device ops and the
+              library calls, host syncs and launches per call, peak
+              memory. Then spmv_block and embedding_bag at phase 8's sizes
+              through AccessService over a 4-shard kernel engine (bit for
+              bit their oracles), and the port's parity harness on the
+              card: ``check_sharded_parity`` at every mesh size and
+              ``check_pattern_parity`` on the 12 conformance patterns.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -124,8 +138,9 @@ forward (cuBLAS reduces in another order per shape).
 The last two lines are the kernel table (JSON; ``launches`` counts phase
 3's run, ``scheduler_launches`` phase 6's window, ``app_launches`` each
 app's checked pipelined run in phase 8, ``traffic_launches`` phase 9b's
-replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10)
-and {"ok": true, "device": {...}}.
+replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
+``sharded_launches`` phase 11's checked calls per mesh size) and {"ok":
+true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -2026,6 +2041,214 @@ def phase_serve(dev, seed: int):
     return launches
 
 
+# --- phase 11 --------------------------------------------------------------
+
+SHARD_MESHES = (1, 2, 4, 8)        # logical shards, all on the one card
+SHARD_RUNS = 3                     # warm timed runs per path
+# phase 8's configurations that phase 11 serves over AccessService(mesh=4)
+SHARD_APPS = ("spmv_block", "embedding_bag")
+# predicted B1/B2 launches per sharded call on a 2-D table: the owners'
+# takes are one bulk_gather, their updates one bulk_rmw
+SHARD_CALL_LAUNCHES = {"gather": {"row_table_gather": 1, "row_table_rmw": 0},
+                       "rmw": {"row_table_gather": 0, "row_table_rmw": 1}}
+
+
+def np_shard_counts(idx, n_rows: int, m: int, placement: str):
+    """``ShardStats``' counts from NumPy for a stream of in-range rows
+    under the call's placement ("block" slices, or the owner-major
+    permutation). ``sent[s, o]`` distinct rows of slice s owned by o;
+    ``received[o]`` its column sum (the capacity drops nothing: a stream
+    on the card runs at the slice length, a measured one at its exact
+    spill); ``unique[o]`` distinct rows owned by o over all slices."""
+    import numpy as np
+    n = idx.shape[0]
+    per, rows_per = -(-n // m), -(-n_rows // m)
+    pad = np.zeros(per * m, np.int64)
+    pad[:n] = idx
+    valid = np.arange(per * m) < n
+    if placement == "owner":
+        perm = np.argsort(np.where(valid, pad // rows_per, m),
+                          kind="stable")
+        pad, valid = pad[perm], valid[perm]
+    sent = np.zeros((m, m), np.int64)
+    for s in range(m):
+        sl = slice(s * per, (s + 1) * per)
+        u = np.unique(pad[sl][valid[sl]])
+        sent[s] = np.bincount(u // rows_per, minlength=m)
+    unique = np.bincount(np.unique(idx) // rows_per, minlength=m)
+    return sent, sent.sum(0), unique
+
+
+def check_shard_stats(what, st, want):
+    import numpy as np
+    for name, got, w in zip(("sent", "received", "unique"),
+                            (st.sent, st.received, st.unique), want):
+        if not np.array_equal(got.astype(np.int64), w):
+            raise AssertionError(f"{what}: ShardStats.{name} {got.tolist()}"
+                                 f" != NumPy {w.tolist()}")
+
+
+def call_profile(dev, fn):
+    """(host syncs, kernel launches) of one call under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync()
+    events = prof.key_averages()
+    syncs = sum(e.count for e in events if e.key in SYNC_CALLS)
+    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    return syncs - 1, launches      # less the closing synchronize
+
+
+def phase_sharded(dev, seed: int):
+    """The sharded engine on the card: ``ShardedEngine(mesh=m,
+    use_kernel=True)`` for m logical shards on this one card, over phase
+    3's table A (2^20 x 128 f32) and 2^21-lookup zipf/uniform streams.
+    Gathers bit for bit the single-device ``bulk_gather``; ADD (integer
+    valued f32) and MIN (an i32 table) bit for bit ``bulk_rmw`` and
+    ``index_add`` / ``scatter_reduce``; ``ShardStats`` against NumPy owner
+    counts; B1/B2 launches exactly ``SHARD_CALL_LAUNCHES`` per call. Then
+    per m the warm median of SHARD_RUNS against the single-device bulk ops
+    and the library calls, the host syncs and launches of one call, and
+    the peak memory. Then ``AccessService`` over a 4-shard kernel engine on
+    ``SHARD_APPS`` at phase 8's sizes, bit for bit their oracles, and the
+    port's harness on the card: ``check_sharded_parity`` at every mesh
+    size and ``check_pattern_parity`` on the 12 conformance patterns
+    (kernel path). Returns each kernel's launches per mesh size."""
+    import statistics
+    import numpy as np
+    import torch
+    from repro_torch.core import Scheduler, bulk_gather, bulk_rmw
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import AccessService
+    from repro_torch.testing import (EngineConfig, build_conformance,
+                                     conformance_names, harness)
+    A, V, B = make_data(dev, LOOKUPS, seed)
+    del V
+    host = {k: v.cpu().numpy() for k, v in B.items()}
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    Vi = torch.randint(-8, 8, (LOOKUPS, WIDTH), generator=gen, device=dev,
+                       dtype=torch.int32)
+    Vf = Vi.float()
+    I = torch.randint(0, 2 ** 20, (ROWS, WIDTH), generator=gen, device=dev,
+                      dtype=torch.int32)
+    Af = (I - 2 ** 19).float()      # integer-valued: every ADD is exact
+    z = B["zipf"]
+    zl = z.long()
+    want_g = {k: bulk_gather(A, b, use_kernel=True,
+                                     device=dev) for k, b in B.items()}
+    want_add = Af.index_add(0, zl, Vf)
+    want_min = I.scatter_reduce(0, zl[:, None].expand(-1, WIDTH), Vi,
+                                "amin")
+    assert_match("single-device bulk_rmw ADD vs index_add",
+                 bulk_rmw(Af, z, Vf, op="ADD", use_kernel=True, device=dev),
+                 want_add)
+    assert_match("single-device bulk_rmw MIN vs scatter_reduce",
+                 bulk_rmw(I, z, Vi, op="MIN", use_kernel=True, device=dev),
+                 want_min)
+    sharded_launches = {"row_table_gather": {}, "row_table_rmw": {}}
+    for m in SHARD_MESHES:
+        eng = ShardedEngine(mesh=m, use_kernel=True, device=dev)
+        empty_cache(dev)
+        reset_peak(dev)
+        totals = {"row_table_gather": 0, "row_table_rmw": 0}
+        calls = [(f"gather {k}", "gather", lambda b=b: eng.sharded_gather(
+            A, b), want_g[k], host[k], ROWS) for k, b in B.items()]
+        calls += [("rmw ADD zipf", "rmw", lambda: eng.sharded_rmw(
+            Af, z, Vf, op="ADD"), want_add, host["zipf"], ROWS),
+                  ("rmw MIN zipf i32", "rmw", lambda: eng.sharded_rmw(
+                      I, z, Vi, op="MIN"), want_min, host["zipf"], ROWS)]
+        for what, kind, fn, want, hidx, n_rows in calls:
+            g0, s0 = gk.launches, sk.launches
+            got = fn()
+            sync()
+            launched = {"row_table_gather": gk.launches - g0,
+                        "row_table_rmw": sk.launches - s0}
+            if launched != SHARD_CALL_LAUNCHES[kind]:
+                raise AssertionError(f"mesh {m} {what}: launches {launched}"
+                                     f" != {SHARD_CALL_LAUNCHES[kind]}")
+            for k_, v in launched.items():
+                totals[k_] += v
+            assert_match(f"mesh {m} {what}", got, want)
+            st = eng.last_shard_stats
+            check_shard_stats(f"mesh {m} {what}", st, np_shard_counts(
+                hidx, n_rows, m, st.placement))
+            del got
+        peak = peak_gib(dev)
+        for k_, v in totals.items():
+            sharded_launches[k_][str(m)] = v
+        st = eng.last_shard_stats
+        log(f"sharded mesh {m}: bit for bit on every call; launches "
+            f"{totals}; capacity {st.capacity} codec {st.codec} placement "
+            f"{st.placement}; local fraction {st.local_fraction:.4f}; "
+            f"bytes on wire {st.bytes_on_wire}; peak {peak:.2f} GiB "
+            "allocated")
+        paths = {
+            "sharded gather": lambda: eng.sharded_gather(A, z),
+            "bulk_gather": lambda: bulk_gather(A, z, use_kernel=True,
+                                               device=dev),
+            "index_select": lambda: A.index_select(0, zl),
+            "sharded rmw ADD": lambda: eng.sharded_rmw(Af, z, Vf,
+                                                       op="ADD"),
+            "bulk_rmw ADD": lambda: bulk_rmw(Af, z, Vf, op="ADD",
+                                             use_kernel=True, device=dev),
+            "index_add": lambda: Af.index_add(0, zl, Vf),
+        }
+        times = {k: [] for k in paths}
+        for _ in range(SHARD_RUNS):
+            for k, fn in paths.items():
+                times[k].append(timed(fn)[1])
+        for k, ms in times.items():
+            log(f"sharded mesh {m} zipf {k:16s} warm median "
+                f"{statistics.median(ms):9.3f} ms, runs "
+                f"{' '.join(f'{t:.3f}' for t in ms)}")
+        for k in ("sharded gather", "sharded rmw ADD"):
+            syncs, launches = call_profile(dev, paths[k])
+            log(f"sharded mesh {m} {k}: {syncs} host syncs, {launches} "
+                "kernel launches per call")
+        del eng, paths
+    del Vi, Vf, I, Af, want_g, want_add, want_min
+    empty_cache(dev)
+    for case in app_cases(seed):
+        if case.name not in SHARD_APPS:
+            continue
+        prob = case.make()
+        want = case.oracle(prob)
+        svc = AccessService(Scheduler(engine=ShardedEngine(
+            mesh=4, tile_size=TILE, use_kernel=True, device=dev)),
+            auto_flush=0)
+        g0, s0 = gk.launches, sk.launches
+        got, ms = timed(lambda: case.run(prob, mode="pipelined",
+                                         service=svc))
+        if not bitwise_equal(got, want):
+            raise AssertionError(f"app {case.name} over mesh 4: not bit "
+                                 "for bit the host oracle")
+        ex = svc.telemetry.exchange_summary()
+        log(f"sharded app {case.name} (mesh 4): bit for bit the host "
+            f"oracle in {ms:.3f} ms; launches B1 {gk.launches - g0} B2 "
+            f"{sk.launches - s0}; exchange {ex}")
+        del prob, want, svc, got
+        empty_cache(dev)
+    checked, ran = harness.check_sharded_parity(
+        mesh_sizes=SHARD_MESHES, device=dev)
+    cfgs = [EngineConfig(optimize=True, use_kernel=True, jit=False,
+                         tile_size=t) for t in (64, TILE)]
+    n_conf = sum(harness.check_pattern_parity(
+        c.pattern, c.env, n=c.n, configs=cfgs,
+        max_tile_fill=c.max_tile_fill, device=dev)
+        for c in (build_conformance(name) for name in conformance_names()))
+    log(f"harness on the card: check_sharded_parity {checked} cases at "
+        f"mesh {ran}; check_pattern_parity {n_conf} comparisons over the "
+        f"12 conformance patterns (kernel path, tiles 64 and {TILE})")
+    sync()
+    return sharded_launches
+
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2057,11 +2280,13 @@ def main(argv=None) -> int:
     traffic_launches = phase_replay(dev)
     kvpool_launches = phase_kvpool(dev, args.seed)
     serve_launches = phase_serve(dev, args.seed)
+    sharded_launches = phase_sharded(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
         row["kvpool_launches"] = kvpool_launches[row["name"]]
         row["serve_launches"] = serve_launches[row["name"]]
+        row["sharded_launches"] = sharded_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

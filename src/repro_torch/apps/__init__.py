@@ -16,7 +16,8 @@ a sequential NumPy oracle:
 Every app exposes ``make_problem``/``make_graph``, ``reference`` (the
 oracle), ``run(..., mode=, service=, mesh=, device=)`` and a seeded
 ``demo``/``demo_reference`` pair. ``device=None`` means CUDA; ``mesh``
-must be None until the sharded engine is ported (ROADMAP A11).
+(a shard count or ``distributed.Mesh``) backs the scheduler modes' service
+with a ``ShardedEngine``.
 """
 from repro_torch.apps import bfs, embedding_bag, hashjoin, kv_serve, spmv
 

@@ -8,24 +8,25 @@ from typing import Dict, List, Sequence
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.serve.access_service import AccessService, single_device
+from repro_torch.serve.access_service import AccessService
 
 MODES = ("eager", "sequential", "pipelined")
 
 
 def placement(mode: str, service, mesh, device, **service_kw):
-    """Check ``mode`` and ``mesh`` (None: ROADMAP A11); return the service
-    the scheduler modes submit to (``service``, else a private one on
-    ``device`` with ``service_kw``; None for the eager mode) and the
-    device the run's tensors live on (``device`` for the eager mode, else
-    the service engine's)."""
-    single_device(mesh)
+    """Check ``mode``; return the service the scheduler modes submit to
+    (``service``, else a private one on ``device`` with ``service_kw``,
+    over a ``ShardedEngine`` when ``mesh`` is given; None for the eager
+    mode, which ignores ``mesh`` as the reference does) and the device the
+    run's tensors live on (``device`` for the eager mode, else the service
+    engine's)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}")
     if mode == "eager":
         return None, resolve_device(device)
     if service is None:
-        service = AccessService(auto_flush=0, device=device, **service_kw)
+        service = AccessService(auto_flush=0, device=device, mesh=mesh,
+                                **service_kw)
     return service, service.scheduler.engine.device
 
 

@@ -156,7 +156,8 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
       "pipelined"  ``DecoupledLoop.run``: step t+1's lookup window is
                    queued while step t's bag reduction may still run
     service: an ``AccessService`` to share (default: a private one on
-    ``device``, ``None`` = CUDA); mesh: must be None (ROADMAP A11).
+    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh``
+    (a ``ShardedEngine``-backed private service).
 
     Raises ValueError on an unknown ``mode``.
     """

@@ -287,7 +287,8 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
       "pipelined"  ``DecoupledLoop.run``: step t+1's history gather is
                    queued while step t's scoring may still run
     service: an ``AccessService`` to share (default: a private one on
-    ``device``, ``None`` = CUDA); mesh: must be None (ROADMAP A11).
+    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh``
+    — the pool gather and the append RMW then span a ``ShardedEngine``.
     stats_out: optional dict, filled with {"growths", "final_pages",
     "t_cap"} — how often the pool grew mid-flight (plan-cache churn).
 

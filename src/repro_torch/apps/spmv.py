@@ -111,8 +111,9 @@ def run(prob: SpmvProblem, n_iters: int, *, mode: str = "pipelined",
       "pipelined"  DecoupledLoop: iteration k+1's gather is queued while
                    iteration k's reduction may still run on the device
     service: an ``AccessService`` to share (default: a private one on
-    ``device``, ``None`` = CUDA); its engine's device is used. mesh: must
-    be None (ROADMAP A11).
+    ``device``, ``None`` = CUDA); its engine's device is used. mesh:
+    optional shard count / ``Mesh`` — the private service then spans a
+    ``ShardedEngine``'s logical shards.
     """
     service, dev = _common.placement(mode, service, mesh, device)
     col = torch.as_tensor(prob.col, device=dev)

@@ -22,8 +22,8 @@ clamps every index into ``[0, n-1]`` on every path; ``bulk_scatter`` and
 route dropped lanes to a spare row ``n`` of a working copy, which is cut off
 before returning — no boolean masking, so no host synchronisation.
 
-u32 tables are int32 containers; ``unsigned=True`` makes MIN/MAX compare
-them unsigned (see ``core.isa``).
+u32 (u64) tables are int32 (int64) containers; ``unsigned=True`` makes
+MIN/MAX compare them unsigned (see ``core.isa``).
 """
 from __future__ import annotations
 
@@ -68,11 +68,12 @@ def _segment_bitwise(vals, seg, num_segments: int, op: str):
     if vals.is_floating_point():
         raise ValueError(f"bitwise RMW {op} requires an integer table, "
                          f"got {vals.dtype}")
-    u = to_u64(vals)
+    wide = vals.dtype == torch.int64
+    u = vals if wide else to_u64(vals)
     seg = seg.to(torch.int64)
     out = torch.zeros((num_segments,) + tuple(vals.shape[1:]),
                       dtype=torch.int64, device=vals.device)
-    for b in range(32):
+    for b in range(64 if wide else 32):
         bit = (u >> b) & 1
         if op == "AND":
             cnt = torch.zeros_like(out).index_add_(0, seg, 1 - bit)
@@ -81,7 +82,7 @@ def _segment_bitwise(vals, seg, num_segments: int, op: str):
             cnt = torch.zeros_like(out).index_add_(0, seg, bit)
             rb = cnt > 0 if op == "OR" else (cnt & 1) == 1
         out |= rb.to(torch.int64) << b
-    return wrap32(out)
+    return out if wide else wrap32(out)
 
 
 def _reduce_into(out: torch.Tensor, index: torch.Tensor, vals: torch.Tensor,

@@ -22,11 +22,12 @@ by ``b * rows`` into the flattened stack; shared read-only regions are one
 copy that every lane indexes directly, so the lanes' reads of a shared
 table coalesce in one sort and dedup.
 
-Types: u32 values travel in int32 containers (``core.isa``), so the engine
-records each tile's and region's logical type beside it: a tile takes the
-type its instruction names, a region the type named for it in ``dtypes``,
-else the type of the instructions that write it (IST/IRMW/SST name their
-region's type), else its tensor's (int32 reads as i32).
+Types: unsigned values travel in signed containers (``core.isa``), so the
+engine records each tile's and region's logical type beside it: a tile takes
+the type its instruction names, a region the type named for it in
+``dtypes``, else the type of the instructions that write it (IST/IRMW/SST
+name their region's type), else its tensor's (a signed container reads as
+signed).
 
 Compile cache: PyTorch runs eagerly, so there is nothing to trace; the
 cache keeps the reference's bookkeeping. ``Engine.executable(program)``
@@ -364,7 +365,7 @@ class Engine:
                     table, idx, vals, op=ins.op, cond=cond,
                     optimize=self.optimize,
                     use_kernel=self.use_kernel and table.ndim == 2,
-                    unsigned=rkind == "u32", device=dev)
+                    unsigned=rkind in isa.UNSIGNED_KINDS, device=dev)
             env[ins.base] = new.reshape(base.shape)
         elif isinstance(ins, (isa.ALUV, isa.ALUS)):
             if isinstance(ins, isa.ALUV):
@@ -372,7 +373,8 @@ class Engine:
             else:
                 a, kind = tile(ins.ts)
                 b = self._scalar(st, ins.rs, kind, a.ndim)
-            out = isa.alu_apply(ins.op, a, b, unsigned=kind == "u32")
+            out = isa.alu_apply(ins.op, a, b,
+                                unsigned=kind in isa.UNSIGNED_KINDS)
             out_kind = "bool" if ins.op in isa.COMPARE_OPS else kind
             cond = self._cond(spd, ins.tc)
             if cond is not None:

@@ -1,9 +1,10 @@
 """NumPy <-> torch hand-off for environments (memory regions) and tiles.
 
-The JAX package keeps regions as arrays of their own dtypes, with 64-bit
-types off. The port keeps them as tensors in the containers of
-``core.isa.DTYPES``: u32 (and u64, which runs at 32 bits) as int32 holding
-the same bits, i64 as int32, f64 as float32, bf16 as ``torch.bfloat16``.
+The JAX package keeps regions as arrays of their own dtypes. The port keeps
+them as tensors in the containers of ``core.isa.DTYPES``: u32 as int32
+holding the same bits, bf16 as ``torch.bfloat16``; with 64-bit types off
+(``isa.X64`` false) u64 and i64 as int32 (wrapped) and f64 as float32, with
+them on u64 as int64 holding the same bits, i64 as int64, f64 as float64.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Mapping
 
 import numpy as np
 import torch
+
+from repro_torch.core.isa import X64
 
 _ISA_NAMES = {
     "uint32": "u32", "int32": "i32", "float32": "f32", "uint64": "u64",
@@ -30,10 +33,12 @@ def to_tensor(a, *, device) -> torch.Tensor:
     if name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
         return t.view(torch.bfloat16).to(device)
-    if name in ("uint32", "uint64", "int64"):
-        # 32-bit wrap, then the bits as int32 (x64-off widths)
+    if name == "uint32" or name in ("uint64", "int64") and not X64:
+        # (32-bit wrap, then) the bits as int32
         a = a.astype(np.uint32).view(np.int32)
-    elif name == "float64":
+    elif name == "uint64":
+        a = a.view(np.int64)
+    elif name == "float64" and not X64:
         a = a.astype(np.float32)
     return torch.from_numpy(np.array(a, copy=True)).to(device)
 
@@ -54,7 +59,7 @@ def to_numpy(t: torch.Tensor, dtype=None) -> np.ndarray:
         return a
     name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
     if name in ("u32", "u64", "uint32", "uint64"):
-        return a.view(np.uint32)
+        return a.view(np.uint32 if a.itemsize == 4 else np.uint64)
     return a
 
 

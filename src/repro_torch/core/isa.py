@@ -17,9 +17,12 @@ Supported, mirroring the paper:
   * IRMW restriction: only associative+commutative ops (ADD MIN MAX AND OR
     XOR MUL) — the engine reorders accesses, exactly as in §3.1.
 
-Widths follow the JAX package as it runs with 64-bit types off: ``i64``,
-``u64`` and ``f64`` are 32 bits wide. Unsigned values live in an int32
-*container* holding the same bits (torch has almost no ``uint32``
+Widths follow the JAX package's 64-bit mode, which both packages read from
+the ``JAX_ENABLE_X64`` environment variable (``X64``, fixed at import). With
+it off (the default) ``i64``, ``u64`` and ``f64`` are 32 bits wide; with it
+on they run in int64/float64 and mixed kinds promote as x64 JAX promotes
+them (``promote``). Unsigned values live in a signed *container* of their
+width holding the same bits (torch has almost no ``uint32``/``uint64``
 arithmetic): ADD, SUB, MUL, AND, OR, XOR and SHL are bit-identical there,
 while MIN, MAX, the comparisons, SHR and conversion to float take
 ``unsigned=True`` and treat the bits as unsigned. ``KINDS`` names the
@@ -29,6 +32,7 @@ region.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Mapping, Optional, Sequence, Union
 
 import torch
@@ -37,22 +41,37 @@ import torch
 # dtypes and ops
 # ---------------------------------------------------------------------------
 
+
+def _env_flag(name: str) -> bool:
+    """A boolean environment flag read as JAX reads its own."""
+    value = os.environ.get(name, "0").strip().lower()
+    if value in ("1", "true", "t", "yes", "y", "on"):
+        return True
+    if value in ("0", "false", "f", "no", "n", "off", ""):
+        return False
+    raise ValueError(f"{name}={value!r} is not a boolean")
+
+
+# 64-bit mode: the i64/u64/f64 names run at 64 bits (JAX_ENABLE_X64)
+X64 = _env_flag("JAX_ENABLE_X64")
+
 # tensor dtype (the container) of each ISA dtype
 DTYPES = {
     "u32": torch.int32,
     "i32": torch.int32,
     "f32": torch.float32,
-    "u64": torch.int32,
-    "i64": torch.int32,
-    "f64": torch.float32,
+    "u64": torch.int64 if X64 else torch.int32,
+    "i64": torch.int64 if X64 else torch.int32,
+    "f64": torch.float64 if X64 else torch.float32,
     "bf16": torch.bfloat16,
 }
 
-# logical type each ISA dtype computes in (64-bit names run at 32 bits)
+# logical type each ISA dtype computes in (64-bit names run at 32 bits
+# with x64 off)
 KINDS = {
-    "u32": "u32", "u64": "u32",
-    "i32": "i32", "i64": "i32",
-    "f32": "f32", "f64": "f32",
+    "u32": "u32", "u64": "u64" if X64 else "u32",
+    "i32": "i32", "i64": "i64" if X64 else "i32",
+    "f32": "f32", "f64": "f64" if X64 else "f32",
     "bf16": "bf16",
 }
 
@@ -67,21 +86,30 @@ RMW_OPS = ("ADD", "MIN", "MAX", "AND", "OR", "XOR", "MUL")
 
 COMPARE_OPS = ("LT", "LE", "GT", "GE", "EQ")
 
-_INT_KINDS = ("i32", "u32")
-_SIGN_BIT = -(2 ** 31)
+_INT_KINDS = ("i32", "u32", "i64", "u64")
+UNSIGNED_KINDS = ("u32", "u64")
+_FLOAT_RANK = {"bf16": 0, "f32": 1, "f64": 2}
 _MASK32 = 0xFFFFFFFF
+
+
+def _bits(kind: str) -> int:
+    return 64 if kind in ("i64", "u64") else 32
+
+
+def _int_kind(bits: int, unsigned: bool) -> str:
+    return ("u" if unsigned else "i") + str(bits)
 
 
 def kind_of(t: torch.Tensor) -> str:
     """Logical kind of a tensor whose ISA type is not recorded elsewhere:
-    int32 containers read as signed."""
+    signed containers read as signed."""
     if t.dtype == torch.bool:
         return "bool"
     if t.dtype == torch.bfloat16:
         return "bf16"
     if t.is_floating_point():
-        return "f32"
-    return "i32"
+        return "f64" if X64 and t.dtype == torch.float64 else "f32"
+    return "i64" if X64 and t.dtype == torch.int64 else "i32"
 
 
 def to_u64(x: torch.Tensor) -> torch.Tensor:
@@ -95,15 +123,46 @@ def wrap32(x: torch.Tensor) -> torch.Tensor:
 
 
 def flip_sign(x: torch.Tensor) -> torch.Tensor:
-    """Map unsigned order onto signed order (and back): toggle bit 31."""
-    return x ^ _SIGN_BIT
+    """Map unsigned order onto signed order (and back): toggle the sign
+    bit of the container (bit 31 or bit 63)."""
+    return x ^ (-(2 ** (8 * x.element_size() - 1)))
+
+
+def _float_to_int(xf: torch.Tensor, bits: int, unsigned: bool):
+    """Saturating float -> int with NaN -> 0 (XLA's convert), into the
+    signed container of ``bits`` (u64 values at or above 2**63 wrap into
+    its negative half)."""
+    xf = torch.where(torch.isnan(xf), 0.0, xf.to(torch.float64)).trunc()
+    if bits == 32:
+        if unsigned:
+            return wrap32(xf.clamp(0, _MASK32).to(torch.int64))
+        return xf.clamp(-(2 ** 31), 2 ** 31 - 1).to(torch.int32)
+    top = float(2 ** 63)
+    if unsigned:
+        hi = xf >= top
+        wide = torch.where(hi, xf - 2.0 ** 64, xf.clamp(min=0))
+        out = torch.where(hi & (xf >= 2.0 ** 64), -1.0, wide)
+        return out.to(torch.int64)
+    out = xf.clamp(-top, top).to(torch.int64)
+    return torch.where(xf >= top, 2 ** 63 - 1, out)
+
+
+def _unsigned_to_float(x: torch.Tensor, dtype) -> torch.Tensor:
+    """The unsigned value of a container as a float of ``dtype``."""
+    if x.dtype == torch.int32:
+        return to_u64(x).to(dtype)
+    # u64: halve with a sticky low bit, convert (one rounding), double
+    half = ((x >> 1) & (2 ** 63 - 1)) | (x & 1)
+    return torch.where(x < 0, half.to(dtype) * 2, x.to(dtype))
 
 
 def convert(x: torch.Tensor, src: str, dst: str) -> torch.Tensor:
-    """``astype`` between logical kinds (i32, u32, f32, bf16, bool).
+    """``astype`` between logical kinds (i32, u32, i64, u64, f32, f64,
+    bf16, bool).
 
     Float -> int saturates and sends NaN to 0, as XLA's convert does;
-    i32 <-> u32 keeps the bits; u32 -> float converts the unsigned value.
+    int -> int keeps the low bits (widening extends by the source's sign);
+    unsigned -> float converts the unsigned value.
     """
     if src == dst:
         return x
@@ -112,76 +171,112 @@ def convert(x: torch.Tensor, src: str, dst: str) -> torch.Tensor:
     if src == "bool":
         return x.to(DTYPES[dst])
     if dst in _INT_KINDS:
+        bits = _bits(dst)
         if src in _INT_KINDS:
-            return x
-        xf = x.to(torch.float64)
-        xf = torch.where(torch.isnan(xf), 0.0, xf).trunc()
-        if dst == "u32":
-            return wrap32(xf.clamp(0, _MASK32).to(torch.int64))
-        return xf.clamp(-(2 ** 31), 2 ** 31 - 1).to(torch.int32)
-    if src == "u32":
-        return to_u64(x).to(DTYPES[dst])
+            if _bits(src) == bits:
+                return x
+            if bits == 32:
+                return wrap32(x)
+            return to_u64(x) if src == "u32" else x.to(torch.int64)
+        return _float_to_int(x, bits, dst in UNSIGNED_KINDS)
+    if src in UNSIGNED_KINDS:
+        return _unsigned_to_float(x, DTYPES[dst])
     return x.to(DTYPES[dst])
 
 
 def scalar(value, kind: str, device) -> torch.Tensor:
     """A register value as a 0-d tensor of ``kind`` (``jnp.asarray(v,
     dtype)``: floats truncate into ints; an int outside the unsigned
-    range raises for u32, as JAX does)."""
+    range raises, as JAX does)."""
     if isinstance(value, torch.Tensor):
         return convert(value.to(device), kind_of(value), kind)
-    if kind == "u32":
+    if kind in UNSIGNED_KINDS:
+        bits = _bits(kind)
         v = int(value)
-        if not 0 <= v <= _MASK32:
-            raise OverflowError(f"Python integer {v} out of bounds for u32")
-        return torch.tensor(v - 2 ** 32 if v >= 2 ** 31 else v,
-                            dtype=torch.int32, device=device)
-    if kind == "i32":
-        return torch.tensor(int(value), dtype=torch.int32, device=device)
+        if not 0 <= v < 2 ** bits:
+            raise OverflowError(f"Python integer {v} out of bounds for "
+                                f"{kind}")
+        return torch.tensor(v - 2 ** bits if v >= 2 ** (bits - 1) else v,
+                            dtype=DTYPES[kind], device=device)
+    if kind in _INT_KINDS:
+        return torch.tensor(int(value), dtype=DTYPES[kind], device=device)
     return torch.tensor(value, dtype=DTYPES[kind], device=device)
 
 
-def promote(a: torch.Tensor, ka: str, b: torch.Tensor, kb: str):
-    """JAX's promotion of two operand kinds (64-bit off): mixed signedness
-    computes as i32, int with float as the float, bf16 with f32 as f32.
-    Returns ``(a, b, kind)``."""
+def promote_kinds(ka: str, kb: str) -> str:
+    """JAX's promotion of two operand kinds: bool gives way; two ints of
+    one signedness take the wider; mixed signedness takes the signed kind
+    when it is wider, else i64 (u32 with i32) or f64 (u64 with a signed
+    kind) with x64 on, i32 with it off; an int with a float takes the
+    float; two floats the wider (bf16 with f32 is f32)."""
     if ka == kb:
-        return a, b, ka
+        return ka
     if ka == "bool" or kb == "bool":
-        kind = kb if ka == "bool" else ka
-    elif ka in _INT_KINDS and kb in _INT_KINDS:
-        return a, b, "i32"
-    elif "f32" in (ka, kb):
-        kind = "f32"
-    else:
-        kind = "bf16"
+        return kb if ka == "bool" else ka
+    if ka in _INT_KINDS and kb in _INT_KINDS:
+        ua, ub = ka in UNSIGNED_KINDS, kb in UNSIGNED_KINDS
+        wide = max(_bits(ka), _bits(kb))
+        if ua == ub:
+            return _int_kind(wide, ua)
+        signed, unsigned = (kb, ka) if ua else (ka, kb)
+        if _bits(signed) > _bits(unsigned):
+            return signed
+        if not X64:
+            return "i32"
+        return "i64" if unsigned == "u32" else "f64"
+    if ka in _INT_KINDS or kb in _INT_KINDS:
+        return kb if ka in _INT_KINDS else ka
+    return max(ka, kb, key=_FLOAT_RANK.__getitem__)
+
+
+def promote(a: torch.Tensor, ka: str, b: torch.Tensor, kb: str):
+    """Both operands converted to ``promote_kinds(ka, kb)``. Returns
+    ``(a, b, kind)``. With x64 off, mixed signedness computes as i32 on
+    the unchanged containers (the bits are the same)."""
+    kind = promote_kinds(ka, kb)
+    if ka in _INT_KINDS and kb in _INT_KINDS and not X64:
+        return a, b, kind
     return convert(a, ka, kind), convert(b, kb, kind), kind
 
 
 def _shift_amount(b: torch.Tensor) -> torch.Tensor:
-    # XLA reads the amount as unsigned: negative amounts are huge shifts
-    return to_u64(b)
+    """XLA reads the amount as unsigned: a negative amount is a shift by
+    at least the width. Returns the amount in int64, widths past the
+    container's clipped to its bit count."""
+    bits = 8 * b.element_size()
+    amt = b.to(torch.int64)
+    return torch.where((amt < 0) | (amt > bits), bits, amt)
 
 
 def _shr(a, b, unsigned: bool):
+    bits = 8 * a.element_size()
     amt = _shift_amount(b)
+    if bits == 32:
+        if unsigned:
+            r = to_u64(a) >> amt.clamp(max=31)
+            return wrap32(torch.where(amt >= 32, 0, r))
+        # arithmetic: shifts past the width fill with the sign bit
+        return a >> amt.clamp(max=31).to(a.dtype)
+    r = a >> amt.clamp(max=63)
     if unsigned:
-        r = to_u64(a) >> amt.clamp(max=31)
-        return wrap32(torch.where(amt >= 32, 0, r))
-    # arithmetic: shifts past the width fill with the sign bit
-    return a >> amt.clamp(max=31).to(a.dtype)
+        # logical: clear the top ``amt`` bits the arithmetic shift filled
+        keep = torch.full_like(amt, 2 ** 63 - 1) >> (amt - 1).clamp(min=0)
+        r = torch.where(amt == 0, a, torch.where(amt >= 64, 0, r & keep))
+    return r
 
 
 def _shl(a, b):
     amt = _shift_amount(b)
-    r = (to_u64(a) << amt.clamp(max=31)) & _MASK32
-    return wrap32(torch.where(amt >= 32, 0, r))
+    if a.element_size() == 4:
+        r = (to_u64(a) << amt.clamp(max=31)) & _MASK32
+        return wrap32(torch.where(amt >= 32, 0, r))
+    return torch.where(amt >= 64, 0, a << amt.clamp(max=63))
 
 
 def alu_apply(op: str, a, b, *, unsigned: bool = False):
     """Semantics of the OP field, shared by ALU unit and Word Modifier.
 
-    ``unsigned`` says the int32 operands are u32 containers.
+    ``unsigned`` says the operands are u32/u64 containers.
     """
     if not isinstance(b, torch.Tensor):
         b = torch.as_tensor(b, dtype=a.dtype, device=a.device)
@@ -230,12 +325,12 @@ def alu_apply(op: str, a, b, *, unsigned: bool = False):
 def rmw_identity(op: str, dtype, *, unsigned: bool = False) -> torch.Tensor:
     """Identity element used to mask inactive lanes of a reordered RMW.
 
-    ``dtype`` is a torch dtype (with ``unsigned`` for u32 containers) or an
-    ISA dtype name. Returns a 0-d CPU tensor, which torch broadcasts as a
+    ``dtype`` is a torch dtype (with ``unsigned`` for u32/u64 containers)
+    or an ISA dtype name. Returns a 0-d CPU tensor, which torch broadcasts as a
     scalar against tensors on any device.
     """
     if isinstance(dtype, str):
-        unsigned = KINDS[dtype] == "u32"
+        unsigned = KINDS[dtype] in UNSIGNED_KINDS
         dtype = DTYPES[dtype]
     floating = dtype.is_floating_point
     if op in ("ADD", "OR", "XOR"):

@@ -144,6 +144,11 @@ class FlushReport:
     groups: Tuple[GroupReport, ...]
     n_programs: int
     n_gathers: int
+    # table id ("gather") / ("rmw", table id, op) -> per-shard exchange/
+    # coalescing record (ShardStats), filled only when the engine spans a
+    # mesh
+    shard_stats: Dict[object, object] = dataclasses.field(
+        default_factory=dict)
     n_rmws: int = 0
     plan: Optional[plan_nodes.Plan] = dataclasses.field(
         default=None, repr=False)
@@ -171,6 +176,39 @@ class FlushReport:
             thunk, self._rmw_thunk = self._rmw_thunk, None
             self._rmw_coalescing = thunk() if thunk else {}
         return self._rmw_coalescing
+
+    def exchange_summary(self) -> Optional[Dict[str, object]]:
+        """Fold the window's per-stream ``ShardStats`` into one
+        wire-level record: post-dedup lane count, fraction served
+        without fabric traffic, bytes shipped (chosen codec vs raw),
+        and the mean route/exec overlap over split-dispatched nodes
+        (None when every node ran fused). Returns None for
+        single-device windows. Reading the stats copies them to the host
+        (a device sync) — call off the flush hot path, as
+        ``serve.telemetry`` does."""
+        if not self.shard_stats:
+            return None
+        lanes = local = idx_b = idx_raw = wire = 0
+        ov_sum, ov_n = 0.0, 0
+        for st in self.shard_stats.values():
+            s = st.sent
+            lanes += int(s.sum())
+            local += int(np.trace(s))
+            idx_b += st.idx_bytes
+            idx_raw += st.idx_bytes_raw
+            wire += st.bytes_on_wire
+            if st.overlap_fraction is not None:
+                ov_sum += st.overlap_fraction
+                ov_n += 1
+        return {
+            "nodes": len(self.shard_stats),
+            "lanes": lanes,
+            "local_fraction": local / max(lanes, 1),
+            "bytes_on_wire": wire,
+            "idx_bytes": idx_b,
+            "compression_ratio": (idx_raw / idx_b) if idx_b else 1.0,
+            "overlap_fraction": (ov_sum / ov_n) if ov_n else None,
+        }
 
 
 class FlushHandle:
@@ -736,6 +774,7 @@ class Scheduler:
             groups=tuple(ctx.group_reports),
             n_programs=counts["programs"],
             n_gathers=counts["gathers"],
+            shard_stats=ctx.shard_stats,
             n_rmws=counts["rmws"],
             plan=plan,
             diagnostics=plan.diagnostics,

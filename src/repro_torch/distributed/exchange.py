@@ -1,0 +1,346 @@
+"""Owner partitioning + the ragged-to-static exchange discipline.
+
+The port's copy of the JAX package's ``distributed.exchange``, on the same
+semantics. The multi-accelerator deployment of paper §6.6 splits the
+address range across units; every bulk index stream must then be routed to
+the shard that owns each row. The per-owner sub-streams are *ragged*; each
+shard packs its requests into a static ``(num_shards, C)`` bucket buffer
+plus validity, and the exchange swaps bucket ``j`` of shard ``i`` with
+bucket ``i`` of shard ``j`` (``distributed.engine``: a transpose of the
+``(m, m, C)`` view).
+
+The protocol (DESIGN.md §5), in order: dedup before the fabric
+(``dedup_stream``; RMW streams ``combine_duplicates``), owner-local lanes
+never enter it, a measured power-of-two capacity per bucket
+(``bucket_capacity``), and the sorted unique spill shipped raw, as an
+occupancy bitmap or as packed 16-bit deltas (``CODECS``; both round-trip
+exactly, with set semantics).
+
+Every function works on a stream's last axis and takes any leading batch
+axes: the engine calls them once for all shards with a leading shard axis
+(``(m, L)`` streams), tests with the reference's one-shard ``(L,)`` form.
+Payloads carry row axes after the lane axis. No function synchronises
+with the device: every shape is static.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import bulk_ops, isa
+
+_INT32_MAX = 2 ** 31 - 1
+
+
+def bucket_capacity(n: int, *, floor: int = 8) -> int:
+    """Power-of-two bucket for a measured per-owner spill count (the
+    reference bounds its shard_map traces with it; the port keeps it so
+    capacities, and ``ShardStats``, agree)."""
+    n = int(n)
+    if n <= floor:
+        return floor
+    return 1 << (n - 1).bit_length()
+
+
+def _flat(x: torch.Tensor, lanes_dim: int):
+    """``x`` with its leading batch axes merged into one: ``(B, L, ...)``
+    for a stream whose lane axis is ``lanes_dim`` from the end of its
+    batch axes; returns the tensor and the batch shape."""
+    batch = tuple(x.shape[:x.ndim - lanes_dim])
+    return x.reshape((-1,) + tuple(x.shape[len(batch):])), batch
+
+
+def _take(x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """``x[b, pos[b, k]]``: x ``(B, M, *row)``, pos ``(B, L)``."""
+    idx = pos.to(torch.int64).view(tuple(pos.shape) + (1,) * (x.ndim - 2))
+    return torch.gather(x, 1, idx.expand(tuple(pos.shape) +
+                                         tuple(x.shape[2:])))
+
+
+def _put(size: int, pos: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``out[b, pos[b, k]] = src[b, k]`` into zeros ``(B, size, *row)``;
+    lanes at ``pos == size`` are dropped."""
+    out = src.new_zeros((src.shape[0], size + 1) + tuple(src.shape[2:]))
+    idx = pos.to(torch.int64).view(tuple(pos.shape) + (1,) * (src.ndim - 2))
+    return out.scatter_(1, idx.expand_as(src), src)[:, :size]
+
+
+def _lane(n: int, device) -> torch.Tensor:
+    return torch.arange(n, dtype=torch.int32, device=device)
+
+
+def partition_by_owner(idx: torch.Tensor, valid: torch.Tensor, *,
+                       rows_per: int, num_shards: int,
+                       capacity: int | None = None):
+    """Pack a request stream into static per-owner buckets.
+
+    ``idx`` ``(..., L)`` global rows (anything on invalid lanes), ``valid``
+    its mask; ``capacity`` the per-owner bucket size ``C`` (default ``L``,
+    which cannot overflow; lanes past a smaller capacity are dropped).
+
+    Returns ``(send_idx, send_valid, order, slot, sent_counts)``:
+    ``send_idx``/``send_valid`` ``(..., num_shards*C)`` with bucket ``o``
+    holding the lanes owned by shard ``o`` in stream order (zero-padded);
+    ``order`` ``(..., L)`` the stable owner-sort permutation; ``slot``
+    ``(..., L)`` the bucket position of the k-th sorted lane
+    (``num_shards*C`` = dropped); ``sent_counts`` ``(..., num_shards)``.
+    """
+    idx, batch = _flat(idx.to(torch.int32), 1)
+    valid, _ = _flat(valid, 1)
+    ns = int(num_shards)
+    L = int(idx.shape[1])
+    C = L if capacity is None else int(capacity)
+    owner = (idx // rows_per).clamp(0, ns - 1)   # garbage on invalid lanes
+    key = torch.where(valid, owner, ns)
+    order = torch.argsort(key, dim=1, stable=True)
+    s_key = torch.gather(key, 1, order)
+    counts = torch.zeros((idx.shape[0], ns + 1), dtype=torch.int32,
+                         device=idx.device).scatter_add_(
+        1, key.to(torch.int64), torch.ones_like(key))[:, :ns]
+    start = torch.cumsum(counts, 1, dtype=torch.int32) - counts
+    rank = _lane(L, idx.device) - torch.gather(
+        start, 1, s_key.clamp(max=ns - 1).to(torch.int64))
+    slot = torch.where((s_key < ns) & (rank < C), s_key * C + rank,
+                       ns * C).to(torch.int32)
+    send_idx = _put(ns * C, slot, torch.gather(idx, 1, order))
+    send_valid = _put(ns * C, slot, torch.gather(valid, 1, order))
+    out = (send_idx, send_valid, order.to(torch.int32), slot, counts)
+    return tuple(t.reshape(batch + tuple(t.shape[1:])) for t in out)
+
+
+def pack_payload(payload: torch.Tensor, order: torch.Tensor,
+                 slot: torch.Tensor, *, num_shards: int,
+                 capacity: int | None = None) -> torch.Tensor:
+    """Scatter a per-lane payload ``(..., L, *row)`` into the bucket layout
+    ``partition_by_owner`` produced for its indices."""
+    order, batch = _flat(order, 1)
+    slot, _ = _flat(slot, 1)
+    payload = payload.reshape((order.shape[0],) +
+                              tuple(payload.shape[len(batch):]))
+    L = int(order.shape[1])
+    C = L if capacity is None else int(capacity)
+    out = _put(int(num_shards) * C, slot, _take(payload, order))
+    return out.reshape(batch + tuple(out.shape[1:]))
+
+
+def unpack_result(bucket_vals: torch.Tensor, order: torch.Tensor,
+                  slot: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-lane results ``(..., L, *row)`` read back out of a returned
+    bucket buffer ``(..., M, *row)``, in stream order; invalid lanes 0."""
+    order, batch = _flat(order, 1)
+    slot, _ = _flat(slot, 1)
+    valid, _ = _flat(valid, 1)
+    vals = bucket_vals.reshape((order.shape[0],) +
+                               tuple(bucket_vals.shape[len(batch):]))
+    picked = _take(vals, slot.clamp(0, vals.shape[1] - 1))
+    out = _put(int(order.shape[1]), order, picked)
+    mask = valid.view(tuple(valid.shape) + (1,) * (out.ndim - 2))
+    out = torch.where(mask, out, torch.zeros_like(out))
+    return out.reshape(batch + tuple(out.shape[1:]))
+
+
+def _sorted_firsts(idx: torch.Tensor, valid: torch.Tensor):
+    """Valid lanes sorted ascending (invalid ones last, as int32-max
+    sentinels): ``(sorted, order, first)`` with ``first`` marking each
+    value's first lane."""
+    keyed = torch.where(valid, idx.to(torch.int32), _INT32_MAX)
+    s, order = torch.sort(keyed, dim=-1, stable=True)
+    first = torch.ones_like(valid)
+    first[..., 1:] = s[..., 1:] != s[..., :-1]
+    return s, order, first
+
+
+def masked_unique_count(idx: torch.Tensor, valid: torch.Tensor
+                        ) -> torch.Tensor:
+    """Number of distinct values among the valid lanes, per stream
+    ``(...)`` int32 (a shard's owner-local coalescing statistic)."""
+    s, _, first = _sorted_firsts(idx, valid)
+    nv = valid.sum(-1, keepdim=True)
+    k = _lane(s.shape[-1], s.device)
+    return ((k < nv) & first).sum(-1, dtype=torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# pre-exchange dedup / combine (the unique-set pass before the fabric)
+# ---------------------------------------------------------------------------
+
+def dedup_stream(idx: torch.Tensor, valid: torch.Tensor):
+    """Unique-set pass over a stream's valid lanes, before any lane is
+    considered for the fabric. Returns ``(u_idx, u_valid, inv, n_u)``:
+    ``u_idx`` ``(..., L)`` holds the distinct valid values ascending in
+    its first ``n_u`` lanes (zero elsewhere), ``u_valid`` marks them, and
+    ``inv`` maps every original lane to its value's position
+    (``u_idx[inv]`` restores the stream on valid lanes)."""
+    idx, batch = _flat(idx, 1)
+    valid, _ = _flat(valid, 1)
+    L = int(idx.shape[1])
+    s, order, first = _sorted_firsts(idx, valid)
+    uid = torch.cumsum(first, 1, dtype=torch.int32) - 1
+    k = _lane(L, idx.device)
+    lane_valid = k < valid.sum(1, keepdim=True)
+    u_idx = _put(L, torch.where(lane_valid, uid, L), s)
+    n_u = (first & lane_valid).sum(1, dtype=torch.int32)
+    u_valid = k < n_u[:, None]
+    inv = _put(L, order, uid)
+    out = (u_idx, u_valid, inv, n_u)
+    return tuple(t.reshape(batch + tuple(t.shape[1:])) for t in out)
+
+
+def combine_duplicates(idx: torch.Tensor, values: torch.Tensor,
+                       valid: torch.Tensor, *, op: str,
+                       unsigned: bool = False):
+    """RMW variant of ``dedup_stream``: duplicate destinations merge with
+    ``op`` (an ``isa.RMW_OPS`` member) before the exchange, so one
+    combined update ships per distinct row. Invalid lanes contribute the
+    op identity. ``unsigned`` marks u32/u64 containers. Returns
+    ``(u_idx, u_vals, u_valid, n_u)``."""
+    u_idx, u_valid, inv, n_u = dedup_stream(idx, valid)
+    inv, batch = _flat(inv, 1)
+    B, L = inv.shape
+    row = tuple(values.shape[len(batch) + 1:])
+    vals = values.reshape((B, L) + row)
+    mask = valid.reshape((B, L) + (1,) * len(row))
+    ident = isa.rmw_identity(op, vals.dtype, unsigned=unsigned).to(
+        vals.device)
+    vals = torch.where(mask, vals, ident)
+    seg = inv.clamp(0, L - 1) + (_lane(B, inv.device) * L)[:, None]
+    u_vals = bulk_ops.segment_combine(
+        vals.reshape((B * L,) + row), seg.reshape(-1), num_segments=B * L,
+        op=op, unsigned=unsigned)
+    return u_idx, u_vals.reshape(batch + (L,) + row), u_valid, n_u
+
+
+# ---------------------------------------------------------------------------
+# index codecs (dense-run compression of the remote spill)
+# ---------------------------------------------------------------------------
+#
+# Both codecs assume the layout ``partition_by_owner`` produces from a
+# deduped, sorted stream: each bucket is a strictly ascending run of
+# distinct local rows in [0, rows_per). Decoding recovers that sorted set.
+# Words are int32 containers (the bitmap's hold uint32 bits).
+
+def bitmap_words(rows_per: int) -> int:
+    """int32 words per bucket for the occupancy-bitmap codec."""
+    return -(-int(rows_per) // 32)
+
+
+def delta_words(capacity: int) -> int:
+    """int32 words per bucket for the packed-delta codec: one count word,
+    one base word, then two 16-bit deltas per word."""
+    return 2 + (max(int(capacity) - 1, 0) + 1) // 2
+
+
+def _bucket_local(send_idx, ns: int, rows_per: int):
+    """Each lane's bucket and its row local to the bucket's owner."""
+    C = int(send_idx.shape[1]) // ns
+    bucket = _lane(ns * C, send_idx.device) // C
+    local = (send_idx.to(torch.int32) - bucket * rows_per).clamp(
+        0, rows_per - 1)
+    return bucket, local, C
+
+
+def encode_bitmap(send_idx: torch.Tensor, send_valid: torch.Tensor, *,
+                  rows_per: int, num_shards: int) -> torch.Tensor:
+    """Occupancy bitmap of a bucket buffer: bit ``r`` of bucket ``o``'s
+    ``bitmap_words(rows_per)`` words is set iff local row ``r`` of owner
+    ``o`` is requested (each at most once: the dedup precondition). The
+    words are summed in int64 and kept modulo 2**32, bit 31 included, as
+    the reference's uint32 scatter-add keeps them."""
+    send_idx, batch = _flat(send_idx, 1)
+    send_valid, _ = _flat(send_valid, 1)
+    ns, W = int(num_shards), bitmap_words(rows_per)
+    bucket, local, _ = _bucket_local(send_idx, ns, rows_per)
+    word = (bucket * W + local // 32).expand_as(send_idx)
+    contrib = torch.where(send_valid, 1 << (local % 32).to(torch.int64), 0)
+    words = torch.zeros((send_idx.shape[0], ns * W), dtype=torch.int64,
+                        device=send_idx.device).scatter_add_(
+        1, word.to(torch.int64), contrib)
+    return isa.wrap32(words).reshape(batch + (ns * W,))
+
+
+def decode_bitmap(bitmap: torch.Tensor, *, rows_per: int, num_shards: int,
+                  capacity: int):
+    """Inverse of ``encode_bitmap``: per bucket, the sorted local rows of
+    the set bits, padded to ``capacity`` lanes. Returns
+    ``(local_rows, valid)`` ``(..., num_shards*capacity)``."""
+    bitmap, batch = _flat(bitmap, 1)
+    ns, W, C = int(num_shards), bitmap_words(rows_per), int(capacity)
+    B = bitmap.shape[0]
+    bits = torch.arange(32, dtype=torch.int64, device=bitmap.device)
+    occ = ((isa.to_u64(bitmap)[..., None] >> bits) & 1).bool()
+    occ = occ.reshape(B, ns, W * 32)
+    row = _lane(W * 32, bitmap.device)
+    keyed = torch.where(occ & (row < rows_per), row, _INT32_MAX)
+    top = torch.sort(keyed, dim=2).values[:, :, :C]
+    if top.shape[2] < C:        # more lanes than the bitmap has rows
+        top = torch.cat([top, top.new_full(
+            (B, ns, C - top.shape[2]), _INT32_MAX)], 2)
+    valid = top < rows_per
+    local = torch.where(valid, top, 0)
+    return (local.reshape(batch + (ns * C,)),
+            valid.reshape(batch + (ns * C,)))
+
+
+def encode_delta(send_idx: torch.Tensor, send_valid: torch.Tensor, *,
+                 rows_per: int, num_shards: int) -> torch.Tensor:
+    """Packed-delta codec: per bucket, word 0 the valid-lane count, word 1
+    the first local row, then two 16-bit successive deltas per word.
+    Exact for ascending runs with ``rows_per <= 1 << 16``."""
+    if rows_per > (1 << 16):
+        raise ValueError(f"delta codec needs rows_per <= 65536, got "
+                         f"{rows_per} (16-bit packed deltas)")
+    send_idx, batch = _flat(send_idx, 1)
+    send_valid, _ = _flat(send_valid, 1)
+    ns = int(num_shards)
+    B = send_idx.shape[0]
+    _, local, C = _bucket_local(send_idx, ns, rows_per)
+    local = torch.where(send_valid, local, 0)
+    b = local.reshape(B, ns, C)
+    delta = b[:, :, 1:] - b[:, :, :-1]          # (B, ns, C-1), < 2^16
+    npairs = C // 2
+    dpad = torch.zeros((B, ns, 2 * npairs), dtype=torch.int32,
+                       device=b.device)
+    dpad[:, :, :C - 1] = delta
+    pairs = dpad.reshape(B, ns, npairs, 2)
+    packed = pairs[..., 0] | (pairs[..., 1] << 16)
+    count = send_valid.reshape(B, ns, C).sum(2, keepdim=True,
+                                             dtype=torch.int32)
+    words = torch.cat([count, b[:, :, :1], packed], 2)
+    return words.reshape(batch + (ns * delta_words(C),))
+
+
+def decode_delta(words: torch.Tensor, *, rows_per: int, num_shards: int,
+                 capacity: int):
+    """Inverse of ``encode_delta``: cumulative-sum the packed deltas back
+    into each bucket's ascending run. Returns ``(local_rows, valid)``
+    ``(..., num_shards*capacity)``."""
+    words, batch = _flat(words, 1)
+    ns, C = int(num_shards), int(capacity)
+    w = words.reshape(words.shape[0], ns, delta_words(C))
+    count, base, packed = w[:, :, 0], w[:, :, 1], w[:, :, 2:]
+    lo = packed & 0xFFFF
+    hi = (packed >> 16) & 0xFFFF
+    deltas = torch.stack([lo, hi], 3).reshape(
+        words.shape[0], ns, -1)[:, :, :max(C - 1, 0)]
+    runs = torch.cat([base[:, :, None], deltas], 2)[:, :, :C]
+    local = torch.cumsum(runs, 2, dtype=torch.int32)
+    valid = _lane(C, words.device) < count[:, :, None]
+    local = torch.where(valid, local, 0)
+    return (local.reshape(batch + (ns * C,)),
+            valid.reshape(batch + (ns * C,)))
+
+
+#: codec name -> (encode, decode, words-per-bucket fn(rows_per, capacity))
+CODECS = {
+    "bitmap": (encode_bitmap, decode_bitmap,
+               lambda rows_per, cap: bitmap_words(rows_per)),
+    "delta": (encode_delta, decode_delta,
+              lambda rows_per, cap: delta_words(cap)),
+}
+
+
+def codec_wire_words(codec: str, *, rows_per: int, capacity: int) -> int:
+    """int32 words one bucket costs on the wire under ``codec`` ("raw"
+    ships ``capacity`` index lanes)."""
+    if codec == "raw":
+        return int(capacity)
+    return int(CODECS[codec][2](rows_per, capacity))

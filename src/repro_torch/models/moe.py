@@ -15,8 +15,8 @@ Experts run as one batched einsum over (n_experts, capacity, d_model).
 The port of the JAX package's ``models.moe`` on one device. Routing takes
 the top k in a stable descending sort, so tied router logits go to the
 lower expert index as ``lax.top_k`` sends them; the dispatch scatter drops
-overflow lanes on a spare row. The expert-parallel path needs a mesh
-(ROADMAP A11).
+overflow lanes on a spare row. The expert-parallel path needs the training
+launcher's mesh (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -103,10 +103,11 @@ def moe_ffn(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
 
 def moe_ffn_ep(p: dict, x: torch.Tensor, *, n_experts: int, top_k: int,
                capacity_factor: float = 1.25):
-    """Expert-parallel MoE over a mesh's ``model`` axis: ROADMAP A11."""
+    """Expert-parallel MoE over the training launcher's ``model`` mesh
+    axis (not the sharded access engine's shards): ROADMAP A13."""
     raise NotImplementedError(
-        "moe_ffn_ep needs a device mesh; the port's distributed engine is "
-        "ROADMAP A11")
+        "moe_ffn_ep needs the training launcher's (data, model) device "
+        "mesh, which is ported with training (ROADMAP A13)")
 
 
 def moe_ffn_auto(p, x, *, n_experts, top_k, capacity_factor=1.25,

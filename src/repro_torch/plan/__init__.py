@@ -13,12 +13,12 @@ exactly the plan the flush executes (node ids round-trip into the
 ``FlushReport``).
 
 This package imports nothing from ``repro_torch.core`` at module scope:
-core registers the "local" backend here, and the registry — not
-duck-typing — routes every window. (The JAX package also registers a
-"sharded" backend; the port's sharded engine is still to come.)
+core registers the "local" backend here, ``repro_torch.distributed``
+registers "sharded", and the registry — not duck-typing — routes every
+window.
 """
 from repro_torch.plan import cost, emit, nodes, passes
-from repro_torch.plan.cost import CostModel
+from repro_torch.plan.cost import CostModel, ExchangePlan
 from repro_torch.plan.emit import (Backend, EmitContext, backend_for,
                                    execute, get_backend, register_backend)
 from repro_torch.plan.explain import Explanation
@@ -36,7 +36,8 @@ explain = explain_plan
 
 __all__ = [
     "cost", "emit", "explain", "nodes", "passes",
-    "CostModel", "Backend", "EmitContext", "backend_for", "execute",
+    "CostModel", "ExchangePlan", "Backend", "EmitContext", "backend_for",
+    "execute",
     "get_backend", "register_backend", "Explanation", "explain_plan",
     "BatchedGroup", "FusedGather", "FusedRmw", "GatherNode", "PassDelta",
     "Plan", "PlanNode", "ProgramNode", "RmwNode", "ShardedNode", "unwrap",

@@ -24,8 +24,8 @@ Decisions:
 ``force_*`` pins a choice — the differential tests run every legal
 backend against the cost model's pick and assert bit-equality. Every
 cutoff is the JAX package's, so on the CPU (where every stream is
-host-resident) the port decides exactly as the reference does. The mesh
-exchange policy (placement and codec) arrives with the sharded engine.
+host-resident) the port decides exactly as the reference does, the mesh
+exchange policy (placement, codec, capacity: ``exchange_plan``) included.
 """
 from __future__ import annotations
 
@@ -38,6 +38,41 @@ import torch
 GATHER_BACKENDS = ("eager", "bulk", "sharded")
 RMW_BACKENDS = ("bulk", "sharded")
 PROGRAM_BACKENDS = ("eager", "vmap")
+EXCHANGE_PLACEMENTS = ("block", "owner")
+EXCHANGE_CODECS = ("raw", "bitmap", "delta")
+
+
+@dataclasses.dataclass(frozen=True)
+class ExchangePlan:
+    """Per-node exchange decision for a mesh-placed fused node.
+
+    ``placement``: how request lanes map to source shards — "block"
+    (natural contiguous slices) or "owner" (owner-major permutation, so
+    lanes start on the shard that owns their row and the fabric only
+    carries the residual spill). ``codec``: wire encoding of the remote
+    index spill — "raw" int32 lanes, "bitmap" occupancy words, or
+    "delta" packed 16-bit run deltas (``distributed.exchange.CODECS``).
+    ``capacity``: measured power-of-two per-(source, owner) spill bound
+    (0 = unmeasured worst case, the slice length). Estimates ride along
+    for ``explain()``; the engine re-measures capacity per call, because
+    a replayed skeleton's *data-dependent* numbers must never size a
+    lossy buffer.
+    """
+    placement: str = "block"
+    codec: str = "raw"
+    capacity: int = 0
+    est_local_fraction: Optional[float] = None
+    est_compression: Optional[float] = None
+    measured: bool = False
+
+    def describe(self) -> str:
+        lf = ("?" if self.est_local_fraction is None
+              else f"{self.est_local_fraction:.2f}")
+        cx = ("?" if self.est_compression is None
+              else f"{self.est_compression:.1f}x")
+        cap = "worst" if not self.capacity else str(self.capacity)
+        return (f"place={self.placement} codec={self.codec} cap={cap} "
+                f"local~{lf} wire~{cx}")
 
 
 def host_stream(member) -> Optional[np.ndarray]:
@@ -65,6 +100,12 @@ class CostModel:
     # accesses): consulted only for a lone stream the measurement could
     # not cover
     priors: dict = dataclasses.field(default_factory=dict)
+    # exchange pins (None = decide from measurement; see exchange_plan)
+    force_placement: Optional[str] = None
+    force_codec: Optional[str] = None
+    # minimum measured local-fraction gain before the owner-major
+    # permutation (one extra device gather + scatter) is worth taking
+    placement_gain_cutoff: float = 0.05
 
     def set_coalescing_prior(self, table_id: int, factor: float) -> None:
         """Record a statically-inferred coalescing factor for a table's
@@ -76,9 +117,51 @@ class CostModel:
     def __post_init__(self):
         for v, legal in ((self.force_gather, GATHER_BACKENDS),
                          (self.force_rmw, RMW_BACKENDS),
-                         (self.force_program, PROGRAM_BACKENDS)):
+                         (self.force_program, PROGRAM_BACKENDS),
+                         (self.force_placement, EXCHANGE_PLACEMENTS),
+                         (self.force_codec, EXCHANGE_CODECS)):
             if v is not None and v not in legal:
                 raise ValueError(f"forced backend {v!r} not in {legal}")
+
+    # -- exchange (mesh-placed nodes) ----------------------------------------
+
+    def exchange_plan(self, meas: Optional[dict] = None) -> ExchangePlan:
+        """Pick placement + codec + capacity for one mesh-placed node.
+
+        ``meas`` is the engine's host-side exchange measurement (computed
+        only when the stream is already on the host — the
+        ``measure_factor`` discipline: never a device read), with keys
+        ``local_block``/``local_owner`` (measured diagonal fraction of
+        the post-dedup exchange matrix under each placement),
+        ``cap_block``/``cap_owner`` (power-of-two bucketed worst
+        per-(source, owner) remote spill) and ``wire_block``/
+        ``wire_owner`` (codec name -> off-diagonal int32 words, None
+        where a codec is statically illegal). ``meas=None`` — the stream
+        was on the device or over budget — returns the safe fallback: block
+        placement, raw wire, worst-case capacity (capacity 0), which can
+        never drop a lane.
+        """
+        if meas is None:
+            return ExchangePlan(placement=self.force_placement or "block",
+                                codec=self.force_codec or "raw", capacity=0)
+        placement = self.force_placement
+        if placement is None:
+            gain = meas["local_owner"] - meas["local_block"]
+            placement = "owner" if gain > self.placement_gain_cutoff \
+                else "block"
+        wire = meas[f"wire_{placement}"]
+        legal = {c: w for c, w in wire.items() if w is not None}
+        codec = self.force_codec
+        if codec is None or codec not in legal:
+            # ties break toward raw: identical wire cost with no decode
+            codec = min(legal, key=lambda c: (legal[c], c != "raw"))
+        raw_w = max(wire.get("raw") or 1, 1)
+        return ExchangePlan(
+            placement=placement, codec=codec,
+            capacity=int(meas[f"cap_{placement}"]),
+            est_local_fraction=float(meas[f"local_{placement}"]),
+            est_compression=raw_w / max(legal[codec], 1),
+            measured=True)
 
     # -- gathers -------------------------------------------------------------
 

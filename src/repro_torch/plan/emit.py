@@ -4,9 +4,11 @@ A *backend* names a pass table (the six ``repro_torch.plan.passes`` slots,
 overridable per backend) plus an emitter table mapping
 ``(node kind, node backend)`` to the function that executes that node.
 Backends are **registered, not probed**: ``repro_torch.core.scheduler``
-registers "local" (its thin ``_execute_*`` emitters) at import, and a
-mesh engine will register its own the same way. An engine declares its
-backend via the ``plan_backend`` class attribute.
+registers "local" (its thin ``_execute_*`` emitters) at import;
+``repro_torch.distributed.engine`` registers "sharded" (shard placement
+pass + mesh emitters) at import — core never imports, or duck-type-sniffs,
+the distributed package. An engine declares its backend via the
+``plan_backend`` class attribute.
 
 ``execute`` walks a lowered plan's roots in order with per-node error
 isolation: a node that raises resolves its members' tickets to the
@@ -28,27 +30,36 @@ class Backend:
     passes: Dict[str, Callable]            # pipeline slot -> pass fn
     emitters: Dict[tuple, Callable]        # (kind, backend tag) -> fn
     sharded: bool = False                  # mesh-capable placement
+    # optional route-stage prefetchers, same (kind, backend tag) keys: run
+    # for every root *before* any emitter so cross-node exchanges overlap
+    # owner-local compute (see repro_torch.distributed.engine's split API)
+    prefetchers: Dict[tuple, Callable] = dataclasses.field(
+        default_factory=dict)
 
 
 _REGISTRY: Dict[str, Backend] = {}
 
 
 def register_backend(name: str, *, passes_override=None, emitters=None,
-                     base: Optional[str] = None,
-                     sharded: bool = False) -> Backend:
+                     base: Optional[str] = None, sharded: bool = False,
+                     prefetchers=None) -> Backend:
     """Register (or re-register) a backend. ``base`` inherits another
-    backend's pass and emitter tables before applying the overrides."""
+    backend's pass, emitter and prefetcher tables before applying the
+    overrides."""
     ptable = dict(passes.DEFAULT_PASSES)
     etable: Dict[tuple, Callable] = {}
+    ftable: Dict[tuple, Callable] = {}
     if base is not None:
         b = get_backend(base)
         ptable.update(b.passes)
         etable.update(b.emitters)
+        ftable.update(b.prefetchers)
         sharded = sharded or b.sharded
     ptable.update(passes_override or {})
     etable.update(emitters or {})
+    ftable.update(prefetchers or {})
     backend = Backend(name=name, passes=ptable, emitters=etable,
-                      sharded=sharded)
+                      sharded=sharded, prefetchers=ftable)
     _REGISTRY[name] = backend
     return backend
 
@@ -78,11 +89,15 @@ class EmitContext:
     engine: object = None
     results: Dict = dataclasses.field(default_factory=dict)
     stats: Dict = dataclasses.field(default_factory=dict)
+    shard_stats: Dict = dataclasses.field(default_factory=dict)
     # RMW end-of-window threading: table_id -> current table state
     tables: Dict = dataclasses.field(default_factory=dict)
     rmw_members: Dict = dataclasses.field(default_factory=dict)
     failed_tables: Dict = dataclasses.field(default_factory=dict)
     group_reports: list = dataclasses.field(default_factory=list)
+    # node nid -> in-flight route-stage handle (filled by prefetchers,
+    # drained by the matching emitters)
+    exchange_inflight: Dict = dataclasses.field(default_factory=dict)
     # scheduler-provided factories (keeps this module core-type free)
     make_failed: Callable = None           # Exception -> FailedResult
     make_group_error: Callable = None      # (node, Exception) -> report
@@ -90,7 +105,27 @@ class EmitContext:
 
 def execute(plan: nodes.Plan, ctx: EmitContext, backend: Backend):
     """Emit every root node; resolve RMW tickets to end-of-window
-    state. Per-node failures isolate (see module docstring)."""
+    state. Per-node failures isolate (see module docstring).
+
+    Before the emit walk, every root with a registered prefetcher gets
+    its route stage dispatched — all cross-node exchanges go on the
+    fabric first, so node k's owner-local compute overlaps node k+1's
+    communication. A prefetch failure is soft: the node simply falls
+    back to its fused single-dispatch emitter."""
+    if backend.prefetchers:
+        for node in plan.roots:
+            inner = nodes.unwrap(node)
+            if getattr(inner, "error", None) is not None:
+                continue
+            pf = backend.prefetchers.get((inner.kind, inner.backend))
+            if pf is None:
+                continue
+            try:
+                pf(node, ctx)
+            except Exception:
+                ctx.exchange_inflight.pop(node.nid, None)
+                ctx.stats["prefetch_errors"] = \
+                    ctx.stats.get("prefetch_errors", 0) + 1
     for node in plan.roots:
         inner = nodes.unwrap(node)
         err = getattr(inner, "error", None)

@@ -234,12 +234,11 @@ class FusedRmw(PlanNode):
 @dataclasses.dataclass
 class ShardedNode(PlanNode):
     """Mesh-placement wrapper: ``inner`` executes owner-locally across
-    ``num_shards`` devices. No backend of the port creates it yet (the
-    sharded engine is still to be ported); the verifier and ``explain``
-    already know its shape.
+    ``num_shards`` logical shards (registered by
+    ``repro_torch.distributed``).
 
-    The shard pass additionally annotates the *exchange plan* chosen for
-    this node:
+    The shard pass additionally annotates the *exchange plan* the cost
+    model chose for this node (``repro_torch.plan.cost.ExchangePlan``):
     ``placement`` ("block" | "owner" lane placement), ``codec`` ("raw" |
     "bitmap" | "delta" wire encoding of the remote index spill) and the
     measured estimates ``explain()`` renders. ``capacity`` is the

@@ -10,9 +10,9 @@ package's ``repro.plan.passes``, with PyTorch ops on the leaves' tensors):
               (table, op) into Fused* nodes (concatenated streams)
   coalesce    decide eager-vs-coalesced per fused gather (cost model)
               and compute the static-shape dedup for coalesced nodes
-  shard       pick the bulk backend per fused node ("bulk" on one
-              device; a mesh backend would wrap mesh-placed nodes in
-              ``ShardedNode`` here)
+  shard       pick the bulk backend per fused node ("bulk" locally; the
+              sharded backend registered by ``repro_torch.distributed``
+              additionally wraps mesh-placed nodes in ``ShardedNode``)
   batch       split groups into ≤ max_batch waves, compute shared
               regions, pick "vmap"-vs-"eager" per wave (cost model)
 
@@ -273,8 +273,8 @@ def coalesce(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
 
 def shard_local(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
     """Backend selection on a single-device engine: every coalesced
-    fused node executes through the local bulk path. (A mesh backend
-    registers its own pass in this slot.)"""
+    fused node executes through the local bulk path. (The mesh variant
+    of this slot is registered by ``repro_torch.distributed.engine``.)"""
     before = _n(plan)
     roots = []
     for node in plan.roots:

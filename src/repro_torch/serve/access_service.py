@@ -36,8 +36,8 @@ Open-loop serving adds three pieces:
 
 The service clock is microseconds from ``time.perf_counter``; replace
 ``svc.clock`` to drive the service on a virtual clock. The service runs on
-one device (``device=None`` means CUDA); a mesh arrives with the sharded
-engine (ROADMAP A11).
+one device (``device=None`` means CUDA), or over a mesh of logical shards
+(``mesh=``, ``distributed.ShardedEngine``).
 """
 from __future__ import annotations
 
@@ -54,15 +54,6 @@ from repro_torch.serve.telemetry import Telemetry
 
 def _wall_us() -> float:
     return time.perf_counter() * 1e6
-
-
-def single_device(mesh) -> None:
-    """Refuse a mesh: the port has no sharded engine yet, and a mesh must
-    never fall back silently to one device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh: the sharded engine (repro_torch.distributed) is not "
-            "ported yet (ROADMAP A11); pass mesh=None")
 
 
 def plan_gain(report: Optional[FlushReport]) -> Optional[float]:
@@ -248,7 +239,11 @@ class AccessService:
 
     ``device``: where a service built here runs its engine (``None`` =
     CUDA, ``core.device``); a prebuilt ``scheduler`` brings its own.
-    ``mesh``: must be None (the sharded engine is ROADMAP A11).
+    ``mesh``: None for the single-device engine, or an int shard count /
+    ``distributed.Mesh`` to back the service with a
+    ``distributed.ShardedEngine`` — fused gathers and RMWs then span the
+    mesh's logical shards, and each ``FlushReport`` carries the per-shard
+    exchange stats (``shard_stats``).
     """
 
     def __init__(self, scheduler: Optional[Scheduler] = None, *,
@@ -257,12 +252,18 @@ class AccessService:
                  controller: Optional[FlushController] = None,
                  telemetry: Optional[Telemetry] = None,
                  clock: Optional[Callable[[], float]] = None, device=None):
-        single_device(mesh)
         if scheduler is None:
-            scheduler = Scheduler(
-                engine=Engine(tile_size=tile_size, optimize=optimize,
-                              device=device),
-                max_batch=max_batch)
+            if mesh is not None:
+                from repro_torch.distributed import ShardedEngine
+                engine = ShardedEngine(mesh, tile_size=tile_size,
+                                       optimize=optimize, device=device)
+            else:
+                engine = Engine(tile_size=tile_size, optimize=optimize,
+                                device=device)
+            scheduler = Scheduler(engine=engine, max_batch=max_batch)
+        elif mesh is not None:
+            raise ValueError("pass either a prebuilt scheduler or a mesh, "
+                             "not both")
         self.scheduler = scheduler
         self.auto_flush = int(auto_flush)
         self.controller = controller
@@ -349,6 +350,10 @@ class AccessService:
         self.telemetry.on_flush(handle.report.order, t0, max(t1, t0),
                                 pending_before=pending)
         self.telemetry.on_diagnostics(handle.report.diagnostics)
+        if handle.report.shard_stats:
+            # bound method, not its result: folding the exchange stats
+            # copies device counts to the host, which summary() defers
+            self.telemetry.on_exchange(handle.report.exchange_summary)
         if self.controller is not None:
             self.controller.observe_flush(
                 len(handle.report.order), t1 - t0, handle.report, t1,

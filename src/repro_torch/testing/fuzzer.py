@@ -1,8 +1,9 @@
 """Seeded generator of *legal* random Patterns + environments (Table-1 space).
 
-The port's copy of the JAX package's ``testing.fuzzer`` generators that the
-serving layer needs at run time (``generate_case`` feeds the traffic
-trace's program events) and the traffic corpus generator. The NumPy draws
+The port's copy of the JAX package's ``testing.fuzzer``: ``generate_case``
+(which also feeds the traffic trace's program events), the mixed flush
+windows of ``generate_mixed_case`` and their hazardous ``mutate_case``
+mutants, and the traffic corpus generator. The NumPy draws
 are the reference's, in the same order, so a seed gives the same pattern,
 environment and trace in both packages; the patterns are built from the
 port's ``compiler`` classes.
@@ -50,6 +51,11 @@ class FuzzCase:
     env: Dict[str, np.ndarray]   # region name -> array
     n: int                       # outer trip count
     seed: int
+
+    def max_tile_fill(self, tile_size: int) -> int:
+        from repro_torch.testing import oracle
+        return oracle.pattern_max_tile_fill(self.pattern, self.env, self.n,
+                                            tile_size)
 
 
 class _Gen:
@@ -264,6 +270,169 @@ def generate_case(seed: int) -> FuzzCase:
     compiler.check_legality(pattern)    # by construction; fail loudly if not
     return FuzzCase(name=f"fuzz{seed}", pattern=pattern, env=g.env,
                     n=g.n, seed=seed)
+
+
+@dataclasses.dataclass
+class MixedFlushCase:
+    """One *mixed* flush window: compiled programs + raw bulk gathers +
+    bulk RMWs against shared tables, submitted by several tenants and
+    executed in ONE ``Scheduler.flush`` — the full plan-IR pipeline
+    (group + fuse + coalesce + backend selection) in a single window.
+
+    Semantics fuzzed (and mirrored by the oracle in
+    ``harness.check_mixed_flush_parity``): gathers read the window's
+    *initial* table state, RMW tickets resolve to the *end-of-window*
+    state, OOB indices clamp on loads and drop on stores, and per table
+    only one RMW op appears (so the window's combine order is free —
+    bit-exact on integer tables however the pipeline fuses it).
+    """
+    name: str
+    seed: int
+    programs: list            # (pattern, env, n) — independent envs
+    gathers: list             # (table_name, idx)
+    rmws: list                # (table_name, idx, values, cond-or-None)
+    tables: Dict[str, np.ndarray]
+    table_ops: Dict[str, str]   # RMW table -> its single op
+    # set by ``mutate_case``: one extra hazardous submission, either
+    # ("gather", table, idx) or ("rmw", table, idx, vals, op) — kept out
+    # of ``gathers``/``rmws`` so parity replay of the base case is
+    # unaffected and the driver controls when the hazard lands
+    injected: tuple = ()
+
+
+def generate_mixed_case(seed: int) -> MixedFlushCase:
+    """Deterministically generate one mixed flush window from ``seed``."""
+    rng = np.random.default_rng(0xD100 + seed)
+    tables: Dict[str, np.ndarray] = {}
+    table_ops: Dict[str, str] = {}
+
+    # shared gather tables: 1-D and 2-D floats (values only, no math)
+    n_gt = int(rng.integers(1, 3))
+    for t in range(n_gt):
+        rows = int(rng.choice((64, 127, 256)))
+        if rng.random() < 0.5:
+            tables[f"G{t}"] = rng.normal(size=(rows,)).astype(np.float32)
+        else:
+            d = int(rng.integers(2, 7))
+            tables[f"G{t}"] = rng.normal(size=(rows, d)).astype(np.float32)
+
+    # shared RMW tables: integers (order-free mod 2^32) + sometimes a
+    # float ADD table (checked to tolerance — §3.1 reordered reduction)
+    n_rt = int(rng.integers(1, 3))
+    for t in range(n_rt):
+        rows = int(rng.choice((16, 64, 128)))
+        if rng.random() < 0.25:
+            tables[f"R{t}"] = rng.normal(size=(rows,)).astype(np.float32)
+            table_ops[f"R{t}"] = "ADD"
+        else:
+            dt = np.int32 if rng.random() < 0.5 else np.uint32
+            tables[f"R{t}"] = rng.integers(
+                0, 2 ** 12, size=(rows,)).astype(dt)
+            table_ops[f"R{t}"] = str(rng.choice(isa.RMW_OPS))
+
+    def stream(rows: int, n: int) -> np.ndarray:
+        # ~1/8 of streams are sharding hazards, so the mesh's exchange
+        # protocol (dedup, owner split, measured capacity, codecs) gets
+        # fuzzed by the same corpus the single-device paths run:
+        #   * boundary-straddling — lanes packed onto the owner-range
+        #     edges of every mesh size in {2, 4, 8};
+        #   * single-owner-hot — all traffic lands in one shard's range,
+        #     the worst case for a measured per-(source, owner) capacity.
+        r = rng.random()
+        if n and r < 0.0625:
+            from repro_torch.distributed.mesh import shard_row_ranges
+            edges = [np.clip(lo + d, 0, rows - 1) for m in (2, 4, 8)
+                     for lo, hi in shard_row_ranges(rows, m) if lo < hi
+                     for d in (-1, 0)]
+            return rng.choice(np.unique(edges), size=n).astype(np.int32)
+        if n and r < 0.125:
+            from repro_torch.distributed.mesh import shard_row_ranges
+            ranges = [rg for rg in shard_row_ranges(rows, 8)
+                      if rg[0] < rg[1]]
+            lo, hi = ranges[int(rng.integers(0, len(ranges)))]
+            return rng.integers(lo, hi, size=n).astype(np.int32)
+        s = rng.integers(0, rows, size=n).astype(np.int32)
+        if n and rng.random() < 0.125:      # OOB poison (clamp/drop policy)
+            k = max(1, n // 8)
+            pos = rng.choice(n, size=k, replace=False)
+            bad = np.where(rng.random(k) < 0.5,
+                           -rng.integers(1, rows + 2, size=k),
+                           rows + rng.integers(0, rows + 2, size=k))
+            s[pos] = bad.astype(np.int32)
+        return s
+
+    gathers = []
+    for _ in range(int(rng.integers(2, 7))):
+        name = f"G{int(rng.integers(0, n_gt))}"
+        n = int(rng.choice((0, 33, 100, 256)))
+        gathers.append((name, stream(tables[name].shape[0], n)))
+
+    rmws = []
+    for _ in range(int(rng.integers(2, 6))):
+        name = f"R{int(rng.integers(0, n_rt))}"
+        table = tables[name]
+        n = int(rng.choice((7, 64, 200)))
+        idx = stream(table.shape[0], n)
+        if table.dtype == np.float32:
+            vals = rng.normal(size=n).astype(np.float32)
+        else:
+            vals = rng.integers(0, 2 ** 10, size=n).astype(table.dtype)
+        cond = (rng.random(n) < 0.7) if rng.random() < 0.4 else None
+        rmws.append((name, idx, vals, cond))
+
+    # independent compiled programs ride in the same window
+    programs = []
+    for k in range(int(rng.integers(1, 4))):
+        c = generate_case(100_000 + seed * 11 + k)
+        programs.append((c.pattern, c.env, min(c.n, 256)))
+
+    return MixedFlushCase(name=f"mixed{seed}", seed=seed,
+                          programs=programs, gathers=gathers, rmws=rmws,
+                          tables=tables, table_ops=table_ops)
+
+
+def mutate_case(case: MixedFlushCase, kind: str, seed: int = 0
+                ) -> MixedFlushCase:
+    """Inject a *known* order-dependent hazard into a legal mixed case.
+
+    The returned case is a structural copy of ``case`` with one extra
+    submission that makes the window order-dependent — the
+    true-positive corpus for ``repro_torch.analysis.hazards`` (every mutant
+    must be flagged; the unmutated corpus must stay ERROR-clean).
+
+      mixed_op        : second RMW op on an existing R table (DX010)
+      gather_rmw_race : gather against an R table that is also RMW-
+                        updated in the window (DX011)
+    """
+    rng = np.random.default_rng(0xBAD + seed)
+    tables = dict(case.tables)
+    table_ops = dict(case.table_ops)
+    rmws = list(case.rmws)
+    # mutate the first R table that actually receives an RMW this window
+    name = next((n for n, _, _, _ in rmws), None)
+    if name is None:        # no RMW traffic: conjure a table + baseline op
+        name = "Rmut"
+        tables[name] = rng.integers(0, 2 ** 12, size=(64,)).astype(np.int32)
+        table_ops[name] = "ADD"
+        rmws.append((name, rng.integers(0, 64, size=16).astype(np.int32),
+                     rng.integers(0, 8, size=16).astype(np.int32), None))
+    table = tables[name]
+    idx = rng.integers(0, table.shape[0], size=16).astype(np.int32)
+    if kind == "gather_rmw_race":
+        injected = ("gather", name, idx)
+    elif kind == "mixed_op":
+        pool = (("MIN", "MAX") if table.dtype == np.float32
+                else isa.RMW_OPS)
+        new_op = next(o for o in pool if o != table_ops[name])
+        vals = (rng.normal(size=16).astype(np.float32)
+                if table.dtype == np.float32
+                else rng.integers(0, 8, size=16).astype(table.dtype))
+        injected = ("rmw", name, idx, vals, new_op)
+    else:
+        raise ValueError(f"unknown mutation kind {kind!r}")
+    return dataclasses.replace(
+        case, name=f"{case.name}+{kind}", rmws=rmws, tables=tables,
+        table_ops=table_ops, injected=injected)
 
 
 def generate_traffic_case(seed: int):

@@ -8,7 +8,7 @@ tolerance: the apps keep every float sum an exact integer below 2^24.
 Port-only checks: the integer SpMV, the KV pool's mid-flight growth and
 cross-tenant gather, ``segment_combine`` against a naive duplicate
 scatter, ``chip_smoke.py``'s vectorised oracles against the copied loop
-oracles, and the refusal of a mesh.
+oracles, and every app over a 2-shard mesh.
 """
 import importlib.util
 from pathlib import Path
@@ -161,8 +161,28 @@ def test_spmv_sparse_oracle_matches_loop_oracle(dtype, d):
 
 @pytest.mark.parametrize("name", sorted(apps.APPS))
 def test_mesh_is_refused(name):
-    with pytest.raises(NotImplementedError, match="A11"):
-        apps.APPS[name].demo(0, mesh=2, device="cpu")
+    """A mesh is no longer refused: the pipelined run over a 2-shard
+    ``ShardedEngine`` equals the oracle bit for bit, and its fused
+    gathers and RMWs went through the sharded backend (per-shard exchange
+    stats)."""
+    svc = AccessService(mesh=2, device="cpu", auto_flush=0,
+                        tile_size=256 if name == "hashjoin" else 16384)
+    reports = []
+    flush = svc.flush_async
+
+    def recording_flush(**kw):
+        handle = flush(**kw)
+        reports.append(handle.report)
+        return handle
+
+    svc.flush_async = recording_flush
+    mod = apps.APPS[name]
+    assert_exact(mod.demo(0, mesh=2, device="cpu"), mod.demo_reference(0))
+    assert_exact(mod.demo(0, service=svc, device="cpu"),
+                 mod.demo_reference(0))
+    assert svc.scheduler.engine.num_shards == 2
+    # the hash join submits programs only: no fused node to shard
+    assert any(r.shard_stats for r in reports) == (name != "hashjoin")
 
 
 def test_unknown_mode_is_refused():

@@ -14,6 +14,8 @@ ADD/MUL rtol=1e-5/atol=1e-6 (f32) and rtol=1e-2/atol=1e-2 (bf16, one ulp),
 since the plain version's ``index_add_`` may sum in another order. The
 RMW kernel's aliasing plans (``chip_smoke.rmw_aliasing_cases``) are held bit
 for bit, floats included, against a loop over the plan's lanes in order.
+The sharded engine's owner-local work runs B1/B2 once per call, and the
+parity harness holds the conformance patterns and every mesh size.
 """
 import dataclasses
 import importlib.util
@@ -424,3 +426,53 @@ def test_decode_matches_forward_on_card(cuda, arch):
         torch.testing.assert_close(got[:, 0], full[:, t], rtol=1e-4,
                                    atol=1e-4)
     assert gk.launches == sk.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+def test_sharded_gather_and_rmw_launch_kernels_on_card(cuda, m):
+    """The sharded engine's owner-local take and update run B1 and B2 once
+    per call on a 2-D table, and agree with the single-device engine bit
+    for bit (integer-valued f32 ADD, i32 MIN)."""
+    from repro_torch.distributed import ShardedEngine
+    rng = np.random.default_rng(11 + m)
+    table = torch.as_tensor(rng.integers(-64, 64, size=(4096, 32)).astype(
+        np.float32)).to(cuda)
+    itable = torch.as_tensor(rng.integers(0, 2 ** 20, size=(4096, 32))
+                             .astype(np.int32)).to(cuda)
+    idx = torch.as_tensor(
+        (rng.zipf(1.05, size=20000) % 4096).astype(np.int32)).to(cuda)
+    vals = torch.as_tensor(rng.integers(-8, 8, size=(20000, 32)).astype(
+        np.float32)).to(cuda)
+    want_g = bulk_gather(table, idx, use_kernel=True)
+    want_add = bulk_rmw(table, idx, vals, op="ADD", use_kernel=True)
+    eng = ShardedEngine(mesh=m, use_kernel=True)
+    gk.launches = sk.launches = 0
+    got = eng.sharded_gather(table, idx)
+    assert (gk.launches, sk.launches) == (1, 0)
+    new = eng.sharded_rmw(table, idx, vals, op="ADD")
+    imin = eng.sharded_rmw(itable, idx, vals.to(torch.int32), op="MIN")
+    assert (gk.launches, sk.launches) == (1, 2)
+    assert torch.equal(got, want_g)
+    assert torch.equal(new, want_add)
+    assert torch.equal(new, table.index_add(0, idx.long(), vals))
+    assert torch.equal(imin, itable.scatter_reduce(
+        0, idx.long()[:, None].expand(-1, 32), vals.to(torch.int32),
+        "amin"))
+    st = eng.last_shard_stats
+    assert int(st.sent.sum()) == int(st.received.sum())
+
+
+@pytest.mark.cuda
+def test_conformance_patterns_through_the_harness_on_card(cuda):
+    from repro_torch.testing import (EngineConfig, build_conformance,
+                                     conformance_names, harness)
+    cfgs = [EngineConfig(optimize=True, use_kernel=True, jit=False,
+                         tile_size=t) for t in (64, 16384)]
+    for name in conformance_names():
+        case = build_conformance(name)
+        assert harness.check_pattern_parity(
+            case.pattern, case.env, n=case.n, configs=cfgs,
+            max_tile_fill=case.max_tile_fill) > 0
+    checked, ran = harness.check_sharded_parity()
+    assert ran == [1, 2, 4, 8] and checked > 0

@@ -59,7 +59,10 @@ def test_port_and_smoke_import_without_jax_or_reference():
                  "testing.fuzzer", "configs.base", "configs.qwen3_0_6b",
                  "configs.dbrx_132b", "models.layers", "models.embedding",
                  "models.moe", "models.remat", "models.transformer",
-                 "models.model"):
+                 "models.model", "testing.oracle", "testing.conformance",
+                 "testing.harness", "testing.streams", "analysis.program",
+                 "distributed", "distributed.mesh", "distributed.exchange",
+                 "distributed.engine"):
         assert f"repro_torch.{name}" in mods
     proc = run_guarded(*mods)
     assert proc.returncode == 0, proc.stderr

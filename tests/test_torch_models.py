@@ -246,7 +246,7 @@ def test_moe_ffn_with_tied_router_logits(top_k, cf, combine):
 def test_moe_ep_needs_a_mesh():
     pp = interop.params_from_numpy(moe_params(9), device="cpu")
     x = torch.zeros((1, 4, 16))
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A13"):
         moe.moe_ffn_ep(pp, x, n_experts=4, top_k=2)
     out, _ = moe.moe_ffn_auto(pp, x, n_experts=4, top_k=2, use_ep=True)
     assert out.shape == x.shape

@@ -8,7 +8,7 @@ observations; and ``AccessService`` driven by the same submissions on a
 virtual clock must flush the same windows in the same order, with the
 same telemetry, as the reference's. Plus the service's own contract:
 ``auto_flush``, ``wait``, ``tick(force=True)`` on an empty queue,
-``stats()`` and the refusal of a mesh.
+``stats()`` and a 2-shard mesh's exchange summary.
 """
 import math
 from types import SimpleNamespace
@@ -250,9 +250,64 @@ def test_admission_control_counts_rejects():
     assert svc.stats()["traffic"]["overall"]["rejects"] == 1
 
 
+def _submit_mesh_window(svc):
+    """One window of gathers and RMWs from three tenants, the same NumPy
+    values for either package (run in the reference's subprocess too)."""
+    import numpy as np
+    rng = np.random.default_rng(7)
+    table = rng.normal(size=(96, 4)).astype(np.float32)
+    counts = rng.integers(0, 2 ** 10, size=(64,)).astype(np.int32)
+    tickets = []
+    for k, tenant in enumerate(("a", "b", "c")):
+        core = svc.connect(tenant)
+        idx = rng.integers(0, 96, size=40 + 8 * k).astype(np.int32)
+        tickets.append(("gather", core.submit_gather(table, idx), idx, None))
+        idx = rng.integers(-4, 68, size=30).astype(np.int32)
+        vals = rng.integers(0, 8, size=30).astype(np.int32)
+        tickets.append(("rmw", core.submit_rmw(counts, idx, vals), idx,
+                        vals))
+    report = svc.flush()
+    return table, counts, tickets, report
+
+
 def test_service_defaults_to_cuda_and_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="A11"):
-        AccessService(mesh=2, device="cpu")
+    """Defaults to CUDA; a mesh is served: ``AccessService(mesh=2)``
+    flushes a window whose ``exchange_summary`` equals the reference's
+    (a subprocess with two forced host devices) and whose results equal
+    the single-device NumPy expectations."""
+    import inspect
+    import json
+    import os
+    import subprocess
+    import sys
+    svc = AccessService(mesh=2, device="cpu", auto_flush=0)
+    table, counts, tickets, report = _submit_mesh_window(svc)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    script = (inspect.getsource(_submit_mesh_window) + "\n"
+              "import json\nfrom repro.serve import AccessService\n"
+              "rep = _submit_mesh_window(AccessService(mesh=2, "
+              "auto_flush=0))[3]\nprint(json.dumps(rep.exchange_summary()))")
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               XLA_FLAGS="--xla_force_host_platform_device_count=2",
+               PYTHONPATH=os.path.join(root, "src"))
+    out = subprocess.run([sys.executable, "-c", script], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    want = json.loads(out.stdout.strip().splitlines()[-1])
+    assert same(report.exchange_summary(), want)
+    assert svc.stats()["traffic"]["exchange"]["windows"] == 1
+    end = counts.copy()
+    for kind, _, idx, vals in tickets:
+        if kind == "rmw":
+            for i, v in zip(idx, vals):
+                if 0 <= i < end.shape[0]:
+                    end[i] += v
+    for kind, t, idx, _ in tickets:
+        got = svc.scheduler.result(t).numpy()
+        want = table[idx] if kind == "gather" else end
+        np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="either"):
+        AccessService(Scheduler(engine=Engine(device="cpu")), mesh=2)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             AccessService()
