@@ -38,9 +38,9 @@ def maybe_constrain(x: torch.Tensor, *spec) -> torch.Tensor:
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
     dt = x.dtype
-    x = x.float()
+    x = x.to(torch.promote_types(dt, torch.float32))   # f32, or f64
     x = x * torch.rsqrt(torch.mean(x * x, dim=-1, keepdim=True) + eps)
-    return (x * scale.float()).to(dt)
+    return (x * scale.to(x.dtype)).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -130,17 +130,21 @@ def update_slice(buf: torch.Tensor, upd: torch.Tensor, start: int) -> None:
 
 def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
               head_dim: int, positions: torch.Tensor, theta: float = 1e4,
-              window: Optional[int] = None,
+              window: Optional[int] = None, causal: bool = True,
               mrope_sections: Optional[tuple] = None,
               positions3: Optional[torch.Tensor] = None,
+              kv: Optional[tuple] = None,
               cache: Optional[tuple] = None,
               cache_len: Optional[int] = None,
               ring: bool = False, packed_gqa: bool = False):
-    """Causal GQA self-attention (the reference's cross-attention mode
-    waits for the encoder-decoder family, ROADMAP A12).
+    """GQA attention.
 
     Modes:
-      train/prefill: cache=None -> self-attn over x, causal.
+      train/prefill: kv=None, cache=None -> self-attn over x, causal
+                     unless causal=False (the encoder: no mask).
+      cross-attn   : kv=(k, v) precomputed from encoder states
+                     (``cross_kv``): neither q nor k is rotated, no mask;
+                     called without a cache.
       decode       : cache=(ck, cv) (B, S_max, n_kv, hd), cache_len an int
                      = #valid entries; x is (B, s, D). The new K/V are
                      written into ck/cv in place; returns (out, (ck, cv)).
@@ -149,16 +153,21 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, p["q_norm"])
-    k = (x @ p["wk"]).reshape(b, s, n_kv, head_dim)
-    v = (x @ p["wv"]).reshape(b, s, n_kv, head_dim)
-    if "k_norm" in p:
-        k = rms_norm(k, p["k_norm"])
-    if mrope_sections is not None:
-        q = apply_mrope(q, positions3, theta, mrope_sections)
-        k = apply_mrope(k, positions3, theta, mrope_sections)
+    if kv is None:
+        k = (x @ p["wk"]).reshape(b, s, n_kv, head_dim)
+        v = (x @ p["wv"]).reshape(b, s, n_kv, head_dim)
+        if "k_norm" in p:
+            k = rms_norm(k, p["k_norm"])
+        if mrope_sections is not None:
+            q = apply_mrope(q, positions3, theta, mrope_sections)
+            k = apply_mrope(k, positions3, theta, mrope_sections)
+        else:
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
     else:
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
+        # cross-attention: K/V precomputed and un-rotated; q stays
+        # un-rotated too (content-based addressing into encoder states)
+        k, v = kv
 
     new_cache = None
     if cache is not None:
@@ -187,6 +196,7 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                               kf.float()) * scale
 
     dev = x.device
+    m = None
     if cache is not None:
         kj = torch.arange(skv, device=dev)[None, :]
         if ring:
@@ -197,17 +207,19 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
             m = kj <= qi
             if window is not None:
                 m &= kj > qi - window
-    else:
+    elif causal and kv is None:
         m = _causal_mask(s, skv, window=window, device=dev)
 
     if packed_gqa:
-        logits = torch.where(m[None, None, None], logits, _NEG)
+        if m is not None:
+            logits = torch.where(m[None, None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype).float(),
                            v.float())
         out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
     else:
-        logits = torch.where(m[None, None], logits, _NEG)
+        if m is not None:
+            logits = torch.where(m[None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", w, vf.float())
         out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
@@ -215,6 +227,15 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     if cache is not None:
         return out, new_cache
     return out
+
+
+def cross_kv(p: dict, enc_out: torch.Tensor, *, n_kv: int, head_dim: int):
+    """Precompute cross-attention K/V from encoder states (reused every
+    decode step — the paper's stream-once-reuse-many pattern)."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p["wk"]).reshape(b, s, n_kv, head_dim)
+    v = (enc_out @ p["wv"]).reshape(b, s, n_kv, head_dim)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

@@ -12,8 +12,9 @@ The port of the JAX package's ``models.model``. ``build_model`` takes the
 device the model runs on (``None`` = CUDA, ``core.device``); params are a
 dict of tensors with the reference's keys and layouts
 (``core.interop.params_from_numpy`` carries a JAX parameter tree over).
-The dense, MoE and VLM families are built; hybrid, SSM and encoder-decoder
-models are ROADMAP A12.
+All five families are built: dense/MoE/VLM (``transformer``), hybrid
+(``hybrid``: Mamba + attention), SSM (``rwkv_lm``) and encoder-decoder
+(``encdec``, whose ``init_cache`` takes ``src_len``, default ``max_len``).
 """
 from __future__ import annotations
 
@@ -24,6 +25,9 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
+from repro_torch.models import encdec as ED
+from repro_torch.models import hybrid as HY
+from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as TF
 
 
@@ -79,7 +83,37 @@ def build_model(cfg: ModelConfig, *, device=None) -> Model:
             prefill=lambda p, b, c: TF.lm_prefill(p, b, cfg, c),
             decode_step=lambda p, b, c: TF.lm_decode_step(p, b, cfg, c),
         )
-    if fam in ("hybrid", "ssm", "encdec"):
-        raise NotImplementedError(
-            f"family {fam!r} ({cfg.name}) is not ported yet: ROADMAP A12")
+    if fam == "hybrid":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda key: HY.init_hybrid_lm(_generator(key, dev), cfg),
+            forward=lambda p, b: HY.hybrid_forward(p, b, cfg),
+            init_cache=lambda batch, max_len, **kw: HY.hybrid_init_cache(
+                cfg, batch, max_len, device=dev, **kw),
+            prefill=lambda p, b, c: HY.hybrid_step(p, b, cfg, c,
+                                                   prefill=True),
+            decode_step=lambda p, b, c: HY.hybrid_step(p, b, cfg, c),
+        )
+    if fam == "ssm":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda key: RW.init_rwkv_lm(_generator(key, dev), cfg),
+            forward=lambda p, b: RW.rwkv_forward(p, b, cfg),
+            init_cache=lambda batch, max_len, **kw: RW.rwkv_init_cache(
+                cfg, batch, max_len, device=dev, **kw),
+            prefill=lambda p, b, c: RW.rwkv_step(p, b, cfg, c,
+                                                 prefill=True),
+            decode_step=lambda p, b, c: RW.rwkv_step(p, b, cfg, c),
+        )
+    if fam == "encdec":
+        return Model(
+            cfg=cfg, device=dev,
+            init=lambda key: ED.init_encdec(_generator(key, dev), cfg),
+            forward=lambda p, b: ED.encdec_forward(p, b, cfg),
+            init_cache=lambda batch, max_len, src_len=None, **kw:
+                ED.encdec_init_cache(cfg, batch, max_len, src_len or max_len,
+                                     device=dev, **kw),
+            prefill=lambda p, b, c: ED.encdec_prefill(p, b, cfg, c),
+            decode_step=lambda p, b, c: ED.encdec_decode_step(p, b, cfg, c),
+        )
     raise ValueError(f"unknown family {fam!r}")

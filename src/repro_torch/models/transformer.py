@@ -87,14 +87,14 @@ def _layer(p, x, *, cfg: ModelConfig, positions, positions3=None,
     return x + ffn_out, new_cache, aux
 
 
-def _embed(params, tokens, cfg: ModelConfig):
+def embed_tokens(params, tokens, cfg: ModelConfig):
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     x = emb.embed_lookup(params["embed"], tokens, cfg.dx100_embed_fwd,
                          cfg.dx100_embed_bwd)
     return tokens, x.to(cfg.activation_dtype)
 
 
-def _positions(b: int, s: int, start: int, cfg: ModelConfig, device):
+def make_positions(b: int, s: int, start: int, cfg: ModelConfig, device):
     positions = (torch.arange(s, dtype=torch.int32, device=device)
                  + start).expand(b, s)
     positions3 = None
@@ -110,13 +110,13 @@ def _positions(b: int, s: int, start: int, cfg: ModelConfig, device):
 def lm_forward(params, batch: dict, cfg: ModelConfig):
     """batch: {"tokens": (B,S)} (+ "patch_embeds", "positions3" for vlm).
     Returns (logits (B,S,V), aux_loss scalar)."""
-    tokens, x = _embed(params, batch["tokens"], cfg)
+    tokens, x = embed_tokens(params, batch["tokens"], cfg)
     b = tokens.shape[0]
     if "patch_embeds" in batch:          # vlm: prepend stubbed patch tokens
         patches = torch.as_tensor(batch["patch_embeds"], device=x.device)
         x = torch.cat([patches.to(cfg.activation_dtype), x], dim=1)
     s = x.shape[1]
-    positions, positions3 = _positions(b, s, 0, cfg, x.device)
+    positions, positions3 = make_positions(b, s, 0, cfg, x.device)
     if batch.get("positions3") is not None:
         positions3 = torch.as_tensor(batch["positions3"], device=x.device)
 
@@ -161,9 +161,9 @@ def _run_cached(params, x, cfg: ModelConfig, cache: dict, *, positions,
 
 def lm_prefill(params, batch: dict, cfg: ModelConfig, cache: dict):
     """Run the prompt, filling the cache. Returns (last_logits, cache)."""
-    tokens, x = _embed(params, batch["tokens"], cfg)
+    tokens, x = embed_tokens(params, batch["tokens"], cfg)
     b, s = tokens.shape
-    positions, positions3 = _positions(b, s, 0, cfg, x.device)
+    positions, positions3 = make_positions(b, s, 0, cfg, x.device)
     x = _run_cached(params, x, cfg, cache, positions=positions,
                     positions3=positions3, cache_len=0)
     logits = emb.logits_out(params["embed"], x[:, -1:, :])
@@ -172,9 +172,9 @@ def lm_prefill(params, batch: dict, cfg: ModelConfig, cache: dict):
 
 def lm_decode_step(params, batch: dict, cfg: ModelConfig, cache: dict):
     """One token for every sequence. batch: {"tokens": (B, 1)}."""
-    tokens, x = _embed(params, batch["tokens"], cfg)
+    tokens, x = embed_tokens(params, batch["tokens"], cfg)
     b = tokens.shape[0]
-    positions, positions3 = _positions(b, 1, cache["len"], cfg, x.device)
+    positions, positions3 = make_positions(b, 1, cache["len"], cfg, x.device)
     # ring/SWA: a cache sized exactly to the sliding window wraps around
     ring = (cfg.sliding_window is not None
             and cache["k"].shape[2] <= cfg.sliding_window)

@@ -59,7 +59,8 @@ def test_port_and_smoke_import_without_jax_or_reference():
                  "testing.fuzzer", "configs.base", "configs.qwen3_0_6b",
                  "configs.dbrx_132b", "models.layers", "models.embedding",
                  "models.moe", "models.remat", "models.transformer",
-                 "models.model", "testing.oracle", "testing.conformance",
+                 "models.model", "models.mamba", "models.hybrid",
+                 "models.rwkv", "models.rwkv_lm", "models.encdec", "testing.oracle", "testing.conformance",
                  "testing.harness", "testing.streams", "analysis.program",
                  "distributed", "distributed.mesh", "distributed.exchange",
                  "distributed.engine"):

@@ -32,7 +32,7 @@ from repro_torch.serve import kv_cache
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCHS = ("qwen3-0.6b", "smollm-135m", "h2o-danube-3-4b", "qwen2-vl-72b",
-         "dbrx-132b")
+         "dbrx-132b", "minicpm-2b", "grok-1-314b")
 
 
 def close(got, want, rtol=RTOL, atol=ATOL):
@@ -44,12 +44,16 @@ def to_np(tree):
     return jax.tree.map(np.asarray, tree)
 
 
-def pair(arch, **overrides):
-    """(reference model, its params, port model, the same params)."""
+def pair(arch, *, jit_init=False, **overrides):
+    """(reference model, its params, port model, the same params).
+    ``jit_init`` draws the reference's params under ``jax.jit`` (one
+    compile instead of one per op; the same layout, values within an ulp
+    of the eager draw)."""
     rcfg = ref_configs.get_config(arch).reduced(**overrides)
     pcfg = configs.get_config(arch).reduced(**overrides)
     ref = ref_build_model(rcfg)
-    rparams = ref.init(jax.random.PRNGKey(0))
+    rparams = (jax.jit(ref.init) if jit_init else ref.init)(
+        jax.random.PRNGKey(0))
     port = build_model(pcfg, device="cpu")
     return ref, rparams, port, interop.params_from_numpy(
         to_np(rparams), device="cpu")
@@ -74,11 +78,32 @@ def test_configs_match_reference():
         assert p.reduced().weight_dtype == torch.float32
 
 
-def test_unported_families_raise():
-    for arch in ("jamba-1.5-large-398b", "rwkv6-1.6b",
-                 "seamless-m4t-large-v2"):
-        with pytest.raises(NotImplementedError, match="A12"):
-            build_model(configs.get_config(arch).reduced(), device="cpu")
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_build_model_serves_every_config(arch):
+    """Every shipped config builds on the CPU, and its reduced model runs
+    forward, prefill and two greedy decode steps with finite logits."""
+    cfg = configs.get_config(arch)
+    assert build_model(cfg, device="cpu").cfg is cfg
+    port = build_model(cfg.reduced(), device="cpu")
+    params = port.init(0)
+    b, s = 2, 6
+    batch = {"tokens": tokens(15, b, s)}
+    kw = {}
+    if cfg.family == "encdec":
+        batch["src_embeds"] = np.random.default_rng(16).normal(
+            size=(b, 5, 64)).astype(np.float32)
+        kw["src_len"] = 5
+    logits, aux = port.forward(params, batch)
+    assert tuple(logits.shape) == (b, s, 256)
+    assert torch.isfinite(logits).all() and torch.isfinite(aux)
+    cache = port.init_cache(b, 16, **kw)
+    logits, cache = port.prefill(params, batch, cache)
+    for _ in range(2):
+        assert tuple(logits.shape) == (b, 1, 256)
+        assert torch.isfinite(logits).all()
+        nxt = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)[:, None]
+        logits, cache = port.decode_step(params, {"tokens": nxt}, cache)
+    assert cache["len"] == s + 2
 
 
 def test_params_from_numpy_keeps_keys_layouts_and_dtypes():
