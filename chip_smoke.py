@@ -136,6 +136,30 @@ the script exits non-zero without its result line:
               bit their oracles), and the port's parity harness on the
               card: ``check_sharded_parity`` at every mesh size and
               ``check_pattern_parity`` on the 12 conformance patterns.
+ 12. train    (a) Qwen3-0.6B whole (28 layers, published widths, bf16
+              params and AdamW moments) trained through
+              ``repro_torch.launch.train.main`` on 8 x 512 zipf(1.3)
+              tokens of ``SyntheticTokenPipeline``: run A 6 steps with
+              checkpoints at 3 and 6, run B resumed from a copy of A's
+              step_3; both step_6 manifests must carry the same per-leaf
+              SHA-256 prefixes, every loss finite and B's metrics A's.
+              Both runs under ``torch.use_deterministic_algorithms``
+              (``CUBLAS_WORKSPACE_CONFIG`` set before CUDA initialises;
+              ops without a deterministic CUDA implementation named), the
+              checkpoints in a temp dir under build/ removed after. (b)
+              one f32 step of Qwen3-0.6B whole at 1 x 128 against the
+              same step in float64 on the CPU from the same weights: the
+              loss, every clipped gradient leaf and the global norm
+              (``check_train_step``). (c) the same check for one reduced
+              step of qwen2-vl, dbrx, jamba (attention period 2), rwkv6
+              and seamless-m4t at 2 x 32; the MoE models again with the
+              expert-parallel path over a (1, n_experts) logical mesh,
+              which must also equal EP off. (d) the bf16 step of (a),
+              warm, in the default mode: median ms of 3, tokens/s, peak
+              memory, launches and busy share of one profiled step, the
+              step's FLOPs and bytes counted by
+              ``roofline.count_step`` against 6 N D and the H100 bounds.
+              B1/B2 launches over the phase must be 0.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -148,19 +172,23 @@ replay's float program regions rtol=1e-4/atol=1e-5 of the plain engine
 forward over the same tokens (cuBLAS reduces in another order per
 shape); RWKV-6, whose random weights amplify that rounding ~1e4-fold,
 is held to the same bound in float64, and in f32 on its prefill rows
-only.
+only; a train step in f32 on the card against float64 on the CPU: the
+loss and the global norm within 1e-5 relative, every gradient leaf
+within a relative L2 error of 1e-4.
 
 The last two lines are the kernel table (JSON; ``launches`` counts phase
 3's run, ``scheduler_launches`` phase 6's window, ``app_launches`` each
 app's checked pipelined run in phase 8, ``traffic_launches`` phase 9b's
 replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
-``sharded_launches`` phase 11's checked calls per mesh size) and {"ok":
+``sharded_launches`` phase 11's checked calls per mesh size,
+``train_launches`` phase 12) and {"ok":
 true, "device": {...}}.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
 import subprocess
 import sys
@@ -2458,10 +2486,286 @@ def phase_sharded(dev, seed: int):
 
 
 
+# --- phase 12 --------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-0.6b"          # whole: 28 layers, published widths
+TRAIN_RUN = ["--steps", "6", "--batch", "8", "--seq", "512",
+             "--ckpt-every", "3", "--log-every", "1"]
+TRAIN_TOKENS = 8 * 512
+TRAIN_CHECK = (1, 128)             # (b): batch x seq of the f32 step
+TRAIN_FAMILY_CHECK = (2, 32)       # (c): each reduced family's step
+TRAIN_FAMILIES = {                 # reduced; overrides of cfg.reduced()
+    "qwen2-vl-72b": {}, "dbrx-132b": {},
+    "jamba-1.5-large-398b": {"attn_period": 2, "n_layers": 2},
+    "rwkv6-1.6b": {}, "seamless-m4t-large-v2": {}}
+TRAIN_LOSS_RTOL = 1e-5             # f32 on the card against float64
+TRAIN_GRAD_REL_L2 = 1e-4           # per gradient leaf
+TRAIN_NORM_RTOL = 1e-5             # the global norm
+TRAIN_TIMED = 3                    # warm timed bf16 steps (median)
+
+
+def check_train_step(what, dev, cfg, params, batch, *, mesh=None):
+    """One f32 train step's gradient half (loss, clipped gradients,
+    global norm) on ``dev`` against the same step in float64 on the CPU
+    from the same weights and batch; raises past the TRAIN_* bounds.
+    Returns the card's (loss, clipped grads, norm) and the errors."""
+    import contextlib
+    import dataclasses
+    import torch
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import loss_and_clipped_grads
+    ctx = meshlib.set_mesh(mesh) if mesh is not None \
+        else contextlib.nullcontext()
+    with ctx:
+        loss, grads, norm = loss_and_clipped_grads(
+            build_model(cfg, device=dev), params, batch)
+    sync()
+    wide = dataclasses.replace(cfg, dtype="float64", param_dtype="float64",
+                               moe_a2a=False)
+    cpu = torch.device("cpu")
+    to64 = lambda t: t.to(cpu, torch.float64) if t.is_floating_point() \
+        else t.to(cpu)
+    loss64, grads64, norm64 = loss_and_clipped_grads(
+        build_model(wide, device=cpu), tree_map(to64, params),
+        {k: to64(v) for k, v in batch.items()})
+    loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
+    norm_err = abs(float(norm) - float(norm64)) / abs(float(norm64))
+    worst, leaves = ("", 0.0), 0
+    for (p, g), (_, w) in zip(tree_leaves_with_path(grads),
+                              tree_leaves_with_path(grads64)):
+        err = float((g.to(cpu, torch.float64) - w).norm()
+                    / w.norm().clamp(min=1e-300))
+        leaves += 1
+        if err > worst[1] or not err == err:
+            worst = ("/".join(map(str, p)), err)
+    log(f"phase 12 {what}: f32 on the card against float64 on the CPU: "
+        f"loss {float(loss):.6f} (rel err {loss_err:.3e}), {leaves} "
+        f"gradient leaves, worst rel L2 {worst[1]:.3e} ({worst[0]}), "
+        f"global norm {float(norm):.6f} (rel err {norm_err:.3e})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and worst[1] <= TRAIN_GRAD_REL_L2
+            and norm_err <= TRAIN_NORM_RTOL):
+        raise AssertionError(
+            f"train {what}: f32 step off float64 (loss {loss_err:.3e}, "
+            f"grad {worst[1]:.3e} at {worst[0]}, norm {norm_err:.3e}; "
+            f"bounds {TRAIN_LOSS_RTOL}, {TRAIN_GRAD_REL_L2}, "
+            f"{TRAIN_NORM_RTOL})")
+    return (loss, grads, norm), (loss_err, worst[1], norm_err)
+
+
+def train_resume(dev, tmp: Path, seed: int):
+    """(a): run A trains 6 steps with checkpoints at 3 and 6; run B resumes
+    from a copy of A's step_3; both step_6 manifests must carry the same
+    per-leaf hashes. Returns A's per-step history."""
+    import shutil
+    import warnings
+    import torch
+    from repro_torch.launch import train as train_cli
+    base = ["--arch", TRAIN_ARCH, "--device", str(dev), "--seed",
+            str(seed)] + TRAIN_RUN
+    hist_a, hist_b = [], []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            train_cli.main(base + ["--ckpt-dir", str(tmp / "a")],
+                           history=hist_a)
+            sync()
+            t_a = time.perf_counter() - t0
+            (tmp / "b").mkdir()
+            shutil.copytree(tmp / "a" / "step_3", tmp / "b" / "step_3")
+            t0 = time.perf_counter()
+            train_cli.main(base + ["--ckpt-dir", str(tmp / "b"),
+                                   "--resume"], history=hist_b)
+            sync()
+            t_b = time.perf_counter() - t0
+    finally:
+        torch.use_deterministic_algorithms(False)
+    nondet = sorted({str(w.message).split("\n")[0] for w in caught
+                     if "deterministic" in str(w.message)})
+    log(f"phase 12 (a) ops without a deterministic CUDA implementation: "
+        f"{nondet or 'none'}")
+    manifests = []
+    for run in ("a", "b"):
+        with open(tmp / run / "step_6" / "manifest.json") as f:
+            manifests.append(json.load(f)["entries"])
+    a, b = manifests
+    differ = sorted(k for k in a if a[k]["hash"] != b.get(k, {}).get("hash"))
+    losses = [h["loss"] for h in hist_a]
+    fmt = lambda xs: " ".join(f"{x:.4f}" for x in xs)
+    log(f"phase 12 (a) run A: {len(hist_a)} steps in {t_a:.1f} s (2 "
+        f"checkpoint writes included), losses {fmt(losses)}; run B resumed "
+        f"at step {hist_b[0]['step']}, {len(hist_b)} steps in {t_b:.1f} s "
+        f"(a load and a write included), losses "
+        f"{fmt(h['loss'] for h in hist_b)}")
+    if differ or set(a) != set(b):
+        raise AssertionError(f"train resume: step_6 hashes differ on "
+                             f"{len(differ)} of {len(a)} leaves "
+                             f"({differ[:5]})")
+    if not all(x == x and abs(x) < float("inf") for x in losses):
+        raise AssertionError(f"train: a loss is not finite: {losses}")
+    if hist_b != hist_a[3:]:
+        raise AssertionError("train resume: run B's metrics differ from "
+                             "run A's steps 3-5")
+    log(f"phase 12 (a) resume bit for bit: {len(a)} leaves of step_6 carry "
+        f"equal hashes; last loss {losses[-1]:.4f} against first "
+        f"{losses[0]:.4f}")
+    return hist_a
+
+
+def train_measure(dev, seed: int):
+    """(d): the bf16 step of (a), warm, in the default (non-deterministic)
+    mode: median of TRAIN_TIMED steps, tokens/s, peak memory, one step
+    under the profiler, the counted FLOPs and bytes against 6 N D and the
+    H100 bounds."""
+    import statistics
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.models import build_model
+    from repro_torch.roofline import analysis as roofline
+    from repro_torch.train.trainer import Trainer
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg, device=dev)
+    trainer = Trainer(model=model, mesh=None, warmup=1, total_steps=6)
+    params, opt = trainer.init_state(seed)
+    step = trainer.jitted_step()
+    batch = SyntheticTokenPipeline(cfg, 8, 512, seed=seed,
+                                   device=dev).get_batch(0)
+    params, opt, _ = step(params, opt, batch)                # warm-up
+    sync()
+    reset_peak(dev)
+    times = []
+    for _ in range(TRAIN_TIMED):
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    peak = peak_gib(dev)
+    ms = statistics.median(times)
+    state = {"p": params, "o": opt}
+
+    def one_step():
+        state["p"], state["o"], _ = step(state["p"], state["o"], batch)
+    launches, busy = profile_app(dev, "train qwen3-0.6b bf16, one step",
+                                 one_step)
+    _, flops, nbytes, ops = roofline.count_step(step, state["p"], state["o"],
+                                                batch)
+    sync()
+    n = roofline.count_params(params)
+    mflops = roofline.model_flops(cfg, batch=8, seq=512, n_params=n)
+    rep = roofline.roofline_terms(hlo_flops=flops, hlo_bytes=nbytes,
+                                  coll_bytes={}, chips=1,
+                                  model_flops_total=mflops)
+    bound_ms = max(rep.compute_s, rep.memory_s) * 1e3
+    log(f"phase 12 (d) train {TRAIN_ARCH} bf16 (8 x 512, AdamW bf16 "
+        f"moments): {ms:.3f} ms per step (median of "
+        f"{' '.join(f'{t:.3f}' for t in times)}), "
+        f"{TRAIN_TOKENS / ms * 1e3:.1f} tokens/s, peak {peak:.2f} GiB "
+        f"allocated; {launches} kernel launches per step, "
+        f"{100 * busy:.1f}% busy; counted {flops:.4e} FLOPs "
+        f"({flops / mflops:.3f} x 6 N D = {mflops:.4e}, N = {n}), "
+        f"{nbytes:.4e} bytes over {ops} aten ops; bounds: compute "
+        f"{rep.compute_s * 1e3:.3f} ms, memory {rep.memory_s * 1e3:.3f} ms "
+        f"({rep.dominant}); the step at {100 * bound_ms / ms:.1f}% of the "
+        f"larger; last loss {float(m['loss']):.4f}")
+    return ms
+
+
+def phase_train(dev, seed: int):
+    """Phase 12: train Qwen3-0.6B whole through ``launch.train.main`` and
+    resume it bit for bit (a), one f32 step against float64 (b), every
+    family's reduced step (c), the bf16 step measured (d); B1/B2
+    launches over the phase must be 0 (e)."""
+    import dataclasses
+    import shutil
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    gk.launches = sk.launches = 0
+    t_phase = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="train_ckpt_", dir=ROOT / "build"))
+    try:
+        train_resume(dev, tmp, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    empty_cache(dev)
+    t_a = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), dtype="float32",
+                              param_dtype="float32")
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    b, s = TRAIN_CHECK
+    batch = SyntheticTokenPipeline(cfg, b, s, seed=seed,
+                                   device=dev).get_batch(0)
+    check_train_step(f"(b) {TRAIN_ARCH} whole, {b} x {s}", dev, cfg,
+                     params, batch)
+    del params
+    empty_cache(dev)
+    t_b = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    b, s = TRAIN_FAMILY_CHECK
+    for name, ov in TRAIN_FAMILIES.items():
+        cfg = get_config(name).reduced(**ov)
+        params = build_model(cfg, device=dev).init(
+            torch.Generator(device=dev).manual_seed(seed))
+        batch = SyntheticTokenPipeline(cfg, b, s, seed=seed,
+                                       device=dev).get_batch(0)
+        what = f"(c) {name} reduced ({cfg.family}), {b} x {s}"
+        (loss, grads, norm), _ = check_train_step(what, dev, cfg, params,
+                                                  batch)
+        if cfg.n_experts:
+            mesh = meshlib.make_host_mesh(1, cfg.n_experts, device=dev)
+            (l_ep, g_ep, n_ep), _ = check_train_step(
+                f"{what}, EP over a {mesh.axis_sizes} mesh", dev,
+                dataclasses.replace(cfg, moe_a2a=True), params, batch,
+                mesh=mesh)
+            ep_err = max(float((a - c).double().norm() / c.double().norm())
+                         for a, c in zip(tree_leaves(g_ep),
+                                         tree_leaves(grads)))
+            loss_err = abs(float(l_ep) - float(loss)) / abs(float(loss))
+            log(f"phase 12 {what}: EP on against EP off on the card: loss "
+                f"rel err {loss_err:.3e}, worst gradient rel L2 "
+                f"{ep_err:.3e}")
+            if loss_err > TRAIN_LOSS_RTOL or ep_err > TRAIN_GRAD_REL_L2:
+                raise AssertionError(f"train {name}: EP on differs from "
+                                     f"EP off ({loss_err}, {ep_err})")
+        del params, grads
+    t_c = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    train_measure(dev, seed)
+    empty_cache(dev)
+    t_d = time.perf_counter() - t0
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    log(f"phase 12 launches {launches} (the train path calls no kernel); "
+        f"(a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s, (d) "
+        f"{t_d:.1f} s, phase {time.perf_counter() - t_phase:.1f} s")
+    if any(launches.values()):
+        raise AssertionError(f"train path launched {launches}")
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    # phase 12 runs cuBLAS deterministically, which needs this set before
+    # CUDA initialises
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2490,12 +2794,14 @@ def main(argv=None) -> int:
     kvpool_launches = phase_kvpool(dev, args.seed)
     serve_launches = phase_serve(dev, args.seed)
     sharded_launches = phase_sharded(dev, args.seed)
+    train_launches = phase_train(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
         row["kvpool_launches"] = kvpool_launches[row["name"]]
         row["serve_launches"] = serve_launches[row["name"]]
         row["sharded_launches"] = sharded_launches[row["name"]]
+        row["train_launches"] = train_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

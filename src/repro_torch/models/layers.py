@@ -26,6 +26,12 @@ def dense_init(gen: torch.Generator, shape, dtype) -> torch.Tensor:
     return w.normal_(0.0, 0.02, generator=gen).to(dtype)
 
 
+def acc(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, where the reference computes in f32, or in float64 for
+    a float64 ``x`` (a float64 model, the train check's reference step)."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 # ---------------------------------------------------------------------------
 # norms
 # ---------------------------------------------------------------------------
@@ -55,7 +61,7 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
 def _rotate(x: torch.Tensor, ang: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, hd); ang: (B, S, hd/2) f32."""
     cos, sin = torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    x1, x2 = torch.chunk(acc(x), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
 
@@ -74,11 +80,10 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor, theta: float,
     position stream. positions3: (3, B, S)."""
     half = x.shape[-1] // 2
     freqs = rope_freqs(x.shape[-1], theta, x.device)
-    sec_id = torch.repeat_interleave(
-        torch.arange(3, device=x.device),
-        torch.as_tensor(sections, device=x.device))[:half]
+    sec = [i for i, n in enumerate(sections) for _ in range(n)][:half]
     # jnp.repeat(total_repeat_length=) pads with the last section's id
-    sec_id = torch.cat([sec_id, sec_id[-1:].expand(half - sec_id.shape[0])])
+    sec_id = torch.tensor(sec + sec[-1:] * (half - len(sec)),
+                          device=x.device)
     pos = positions3[sec_id]                            # (hd/2, B, S)
     return _rotate(x, torch.movedim(pos, 0, -1).float() * freqs)
 
@@ -187,13 +192,13 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         # grouped einsum: KV stays un-replicated and in its storage dtype;
         # products of storage-dtype values accumulated in f32
         qg = q.reshape(b, s, n_kv, n_rep, head_dim)
-        logits = torch.einsum("bqkrd,bskd->bkrqs", qg.float(),
-                              k.float()) * scale
+        logits = torch.einsum("bqkrd,bskd->bkrqs", acc(qg),
+                              acc(k)) * scale
     else:
         kf = _repeat_kv(k, n_rep)
         vf = _repeat_kv(v, n_rep)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q.float(),
-                              kf.float()) * scale
+        logits = torch.einsum("bqhd,bkhd->bhqk", acc(q),
+                              acc(kf)) * scale
 
     dev = x.device
     m = None
@@ -214,14 +219,14 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         if m is not None:
             logits = torch.where(m[None, None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bkrqs,bskd->bqkrd", w.to(v.dtype).float(),
-                           v.float())
+        out = torch.einsum("bkrqs,bskd->bqkrd", acc(w.to(v.dtype)),
+                           acc(v))
         out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
     else:
         if m is not None:
             logits = torch.where(m[None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
-        out = torch.einsum("bhqk,bkhd->bqhd", w, vf.float())
+        out = torch.einsum("bhqk,bkhd->bqhd", w, acc(vf))
         out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
     out = out @ p["wo"]
     if cache is not None:

@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import acc, dense_init
 
 
 def init_mamba(gen: torch.Generator, d_model: int, *, expand: int = 2,
@@ -81,12 +81,11 @@ def mamba_forward(p: dict, x: torch.Tensor, return_state: bool = False):
     upad = F.pad(u, (0, 0, d_conv - 1, 0))
     uc = sum(upad[:, i:i + s, :] * p["conv_w"][i][None, None, :]
              for i in range(d_conv))
-    uc = F.silu(uc).float()
+    uc = acc(F.silu(uc))
     dt, b_mat, c_mat = _sel_params(p, uc, dt_rank, d_state)
     a = -torch.exp(p["A_log"])                 # (di, st)
 
-    h = torch.zeros((b, d_inner, d_state), dtype=torch.float32,
-                    device=x.device)
+    h = torch.zeros((b, d_inner, d_state), dtype=uc.dtype, device=x.device)
     ys = []
     for t in range(s):
         dt_t = dt[:, t, :, None]                               # (B,di,1)
@@ -96,7 +95,7 @@ def mamba_forward(p: dict, x: torch.Tensor, return_state: bool = False):
         ys.append(torch.einsum("bds,bs->bd", h, c_mat[:, t]))
     y = torch.stack(ys, dim=1)                 # (B,S,di)
     y = y + uc * p["D"][None, None, :]
-    out = (y * F.silu(z.float())).to(x.dtype)
+    out = (y * F.silu(acc(z))).to(x.dtype)
     out = out @ p["out_proj"]
     if return_state:
         state = {"conv": upad[:, s:s + d_conv - 1, :].float(), "ssm": h}

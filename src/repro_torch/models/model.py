@@ -29,12 +29,13 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
 from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as TF
+from repro_torch.models.layers import acc
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean next-token cross-entropy; logits (B,S,V), labels (B,S)."""
-    logits = logits.float()
+    logits = acc(logits)
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold

@@ -63,7 +63,11 @@ def test_port_and_smoke_import_without_jax_or_reference():
                  "models.rwkv", "models.rwkv_lm", "models.encdec", "testing.oracle", "testing.conformance",
                  "testing.harness", "testing.streams", "analysis.program",
                  "distributed", "distributed.mesh", "distributed.exchange",
-                 "distributed.engine"):
+                 "distributed.engine", "core.tree", "optim.adamw",
+                 "optim.compress", "optim.schedules", "data.batches",
+                 "data.pipeline", "train.trainer", "train.checkpoint",
+                 "train.elastic", "launch.mesh", "launch.train",
+                 "launch.dryrun", "roofline.analysis"):
         assert f"repro_torch.{name}" in mods
     proc = run_guarded(*mods)
     assert proc.returncode == 0, proc.stderr

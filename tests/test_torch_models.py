@@ -269,12 +269,17 @@ def test_moe_ffn_with_tied_router_logits(top_k, cf, combine):
 
 
 def test_moe_ep_needs_a_mesh():
+    """The EP path needs an ambient (data, model) mesh with one column per
+    expert; without one ``moe_ffn_auto`` takes ``moe_ffn``, as the
+    reference does (tests/test_torch_moe_ep.py holds the EP path)."""
     pp = interop.params_from_numpy(moe_params(9), device="cpu")
-    x = torch.zeros((1, 4, 16))
-    with pytest.raises(NotImplementedError, match="A13"):
+    x = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(1, 4, 16)).astype(np.float32))
+    with pytest.raises(ValueError, match="ambient mesh"):
         moe.moe_ffn_ep(pp, x, n_experts=4, top_k=2)
     out, _ = moe.moe_ffn_auto(pp, x, n_experts=4, top_k=2, use_ep=True)
-    assert out.shape == x.shape
+    want, _ = moe.moe_ffn(pp, x, n_experts=4, top_k=2)
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("cache_len,ring", [(5, False), (14, False),
