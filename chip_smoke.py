@@ -160,6 +160,24 @@ the script exits non-zero without its result line:
               step's FLOPs and bytes counted by
               ``roofline.count_step`` against 6 N D and the H100 bounds.
               B1/B2 launches over the phase must be 0.
+ 13. process  ``ShardedEngine`` over a ``ProcessMesh``: one spawned
+              process per rank (``distributed.spawn.run_ranks``), each
+              holding only its slice of phase 11's tables on its card, the
+              exchange over torch.distributed: an nccl group over every
+              visible card (world 1 on a one-card machine), then gloo
+              worlds 2 and 4 on card 0, each rank its own CUDA context,
+              the buckets staged through pinned host memory. The ranks
+              reuse phase 1's kernel build. Gathers (zipf and uniform),
+              integer-valued f32 ADD and i32 MIN bit for bit: each rank's
+              block or slice against A[idx] / ``index_add`` /
+              ``scatter_reduce`` on the whole table, and the whole put
+              back together by ``gather_blocks``; ``ShardStats`` against
+              NumPy owner counts; one B1 or one B2 launch per rank per
+              call. Then per group the warm median of 3 (slowest rank)
+              per call beside phase 11's logical time at that mesh size,
+              and each rank's peak memory. A rank that raises, dies or
+              hangs (collectives time out after 120 s, a group after
+              300 s) fails the phase.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -181,7 +199,8 @@ The last two lines are the kernel table (JSON; ``launches`` counts phase
 app's checked pipelined run in phase 8, ``traffic_launches`` phase 9b's
 replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
 ``sharded_launches`` phase 11's checked calls per mesh size,
-``train_launches`` phase 12) and {"ok":
+``train_launches`` phase 12, ``process_mesh_launches`` phase 13's
+checked calls per group, summed over its ranks) and {"ok":
 true, "device": {...}}.
 """
 from __future__ import annotations
@@ -2353,7 +2372,8 @@ def phase_sharded(dev, seed: int):
     ``SHARD_APPS`` at phase 8's sizes, bit for bit their oracles, and the
     port's harness on the card: ``check_sharded_parity`` at every mesh
     size and ``check_pattern_parity`` on the 12 conformance patterns
-    (kernel path). Returns each kernel's launches per mesh size."""
+    (kernel path). Returns each kernel's launches per mesh size and each
+    mesh size's warm median ms per timed path."""
     import statistics
     import numpy as np
     import torch
@@ -2388,6 +2408,7 @@ def phase_sharded(dev, seed: int):
                  bulk_rmw(I, z, Vi, op="MIN", use_kernel=True, device=dev),
                  want_min)
     sharded_launches = {"row_table_gather": {}, "row_table_rmw": {}}
+    logical_ms = {}
     for m in SHARD_MESHES:
         eng = ShardedEngine(mesh=m, use_kernel=True, device=dev)
         empty_cache(dev)
@@ -2439,6 +2460,7 @@ def phase_sharded(dev, seed: int):
         for _ in range(SHARD_RUNS):
             for k, fn in paths.items():
                 times[k].append(timed(fn)[1])
+        logical_ms[m] = {k: statistics.median(ms) for k, ms in times.items()}
         for k, ms in times.items():
             log(f"sharded mesh {m} zipf {k:16s} warm median "
                 f"{statistics.median(ms):9.3f} ms, runs "
@@ -2482,7 +2504,7 @@ def phase_sharded(dev, seed: int):
         f"mesh {ran}; check_pattern_parity {n_conf} comparisons over the "
         f"12 conformance patterns (kernel path, tiles 64 and {TILE})")
     sync()
-    return sharded_launches
+    return sharded_launches, logical_ms
 
 
 
@@ -2759,6 +2781,194 @@ def phase_train(dev, seed: int):
     return launches
 
 
+# --- phase 13 --------------------------------------------------------------
+
+# (backend, world, device): nccl over every visible card (world None, each
+# rank on cuda:{rank}), gloo worlds on card 0, each rank its own CUDA
+# context, the buckets staged through pinned host memory
+PM_GROUPS = (("nccl", None, None), ("gloo", 2, "cuda:0"),
+             ("gloo", 4, "cuda:0"))
+PM_RUNS = 3                        # warm timed calls per path (median)
+PM_COLLECTIVE_S = 120              # init_process_group's timeout
+PM_JOIN_S = 300                    # a group not done by then fails
+
+
+def pm_data(dev, seed: int, rows: tuple):
+    """Phase 11's inputs, generated whole on this rank's card (same seeds)
+    and cut to the rank's rows ``rows``: A (2^20 x 128 f32), the i32
+    table I for MIN, Af = I - 2^19 as f32 (integer-valued, so every ADD
+    is exact), and the replicated streams and values. Returns the slices,
+    the streams (card and host) and the values."""
+    import torch
+    lo, hi = rows
+    A, V, B = make_data(dev, LOOKUPS, seed)
+    del V
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    Vi = torch.randint(-8, 8, (LOOKUPS, WIDTH), generator=gen, device=dev,
+                       dtype=torch.int32)
+    I = torch.randint(0, 2 ** 20, (ROWS, WIDTH), generator=gen, device=dev,
+                      dtype=torch.int32)
+    slices = {"A": A[lo:hi].clone(), "I": I[lo:hi].clone(),
+              "Af": (I[lo:hi] - 2 ** 19).float()}
+    del A, I
+    host = {k: v.cpu().numpy() for k, v in B.items()}
+    return slices, B, host, Vi, Vi.float()
+
+
+def pm_expected(dev, seed: int, B, Vi, Vf):
+    """The whole-table results on one card: A[idx] per stream, index_add
+    into Af and scatter_reduce amin into I (the sequential results)."""
+    import torch
+    A, V, _ = make_data(dev, LOOKUPS, seed)
+    del V
+    gen = torch.Generator(device=dev).manual_seed(seed + 11)
+    torch.randint(-8, 8, (LOOKUPS, WIDTH), generator=gen, device=dev,
+                  dtype=torch.int32)
+    I = torch.randint(0, 2 ** 20, (ROWS, WIDTH), generator=gen, device=dev,
+                      dtype=torch.int32)
+    zl = B["zipf"].long()
+    want = {f"gather {k}": A.index_select(0, b.long())
+            for k, b in B.items()}
+    want["rmw ADD zipf"] = (I - 2 ** 19).float().index_add(0, zl, Vf)
+    want["rmw MIN zipf i32"] = I.scatter_reduce(
+        0, zl[:, None].expand(-1, WIDTH), Vi, "amin")
+    return want
+
+
+def pm_rank(rank, world, backend, device, seed):
+    """One rank of phase 13 (spawned): its slices of phase 11's tables on
+    its device, every call checked (its block or slice, the whole through
+    ``gather_blocks`` for the RMWs and the zipf gather, ``ShardStats``
+    against NumPy, B1/B2 launches), then the timed calls."""
+    import statistics
+    import torch.distributed as dist
+    from repro_torch.core.device import synchronize
+    from repro_torch.distributed import (ShardedEngine, gather_blocks,
+                                         process_mesh)
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    mesh = process_mesh(device=device)
+    dev = mesh.device
+    eng = ShardedEngine(mesh, use_kernel=True)
+    rows = eng.rank_rows(ROWS)
+    t0 = time.perf_counter()
+    tab, B, host, Vi, Vf = pm_data(dev, seed, rows)
+    z = B["zipf"]
+    empty_cache(dev)
+    reset_peak(dev)
+    calls = [(f"gather {k}", "gather", lambda b=b: eng.sharded_gather(
+        tab["A"], b, n_rows=ROWS), host[k]) for k, b in B.items()]
+    calls += [("rmw ADD zipf", "rmw", lambda: eng.sharded_rmw(
+        tab["Af"], z, Vf, op="ADD", n_rows=ROWS), host["zipf"]),
+              ("rmw MIN zipf i32", "rmw", lambda: eng.sharded_rmw(
+                  tab["I"], z, Vi, op="MIN", n_rows=ROWS), host["zipf"])]
+    got, launches = {}, {"row_table_gather": 0, "row_table_rmw": 0}
+    for what, kind, fn, hidx in calls:
+        g0, s0 = gk.launches, sk.launches
+        out = fn()
+        synchronize(dev)
+        launched = {"row_table_gather": gk.launches - g0,
+                    "row_table_rmw": sk.launches - s0}
+        if launched != SHARD_CALL_LAUNCHES[kind]:
+            raise AssertionError(f"rank {rank} {what}: launches {launched} "
+                                 f"!= {SHARD_CALL_LAUNCHES[kind]}")
+        for k, v in launched.items():
+            launches[k] += v
+        st = eng.last_shard_stats
+        check_shard_stats(f"rank {rank} {what}", st, np_shard_counts(
+            hidx, ROWS, world, st.placement))
+        got[what] = (out, st.transport, st.collectives)
+    peak = peak_gib(dev)
+    setup_s = time.perf_counter() - t0
+    # the checks: every rank's block / slice, and the whole via
+    # gather_blocks where its size allows
+    want = pm_expected(dev, seed, B, Vi, Vf)
+    lo, hi = eng.rank_lanes(LOOKUPS)
+    for what, (out, transport, coll) in got.items():
+        if what.startswith("gather"):
+            assert_match(f"rank {rank} {what} block", out,
+                         want[what][lo:hi])
+        else:
+            assert_match(f"rank {rank} {what} slice", out,
+                         want[what][rows[0]:rows[1]])
+    for what in ("gather zipf", "rmw ADD zipf", "rmw MIN zipf i32"):
+        assert_match(f"rank {rank} {what} whole (gather_blocks)",
+                     gather_blocks(got[what][0], mesh), want[what])
+    transport, collectives = got["gather zipf"][1:]
+    del want, got
+    empty_cache(dev)
+    paths = {"gather zipf": calls[0][2], "rmw ADD zipf": calls[2][2]}
+    times = {k: [] for k in paths}
+    for _ in range(PM_RUNS):
+        for k, fn in paths.items():
+            dist.barrier()
+            synchronize(dev)
+            t = time.perf_counter()
+            fn()
+            synchronize(dev)
+            times[k].append((time.perf_counter() - t) * 1e3)
+    return {"rank": rank, "device": str(dev), "transport": transport,
+            "collectives": collectives, "launches": launches,
+            "peak_gib": peak, "rows": rows, "setup_s": setup_s,
+            "ms": times, "median": {k: statistics.median(v)
+                                    for k, v in times.items()}}
+
+
+def phase_process_mesh(dev, seed: int, logical_ms: dict, groups=PM_GROUPS):
+    """``ShardedEngine`` over a ``ProcessMesh``: one process per rank
+    (spawned), each holding only its slice of phase 11's tables on its
+    card, the exchange over torch.distributed: an nccl group over every
+    visible card, then gloo worlds 2 and 4 on card 0 (buckets staged
+    through pinned host memory). Gathers and integer-valued ADD / i32 MIN
+    bit for bit (each rank's block or slice, and the whole through
+    ``gather_blocks``), ``ShardStats`` against NumPy, one B1 or one B2
+    launch per rank per call; then per group the warm median of PM_RUNS
+    (slowest rank) beside phase 11's logical time at that mesh size, and
+    each rank's peak memory. Returns each kernel's launches per group."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    for backend, world, device in groups:
+        world = torch.cuda.device_count() if world is None else world
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ranks = run_ranks(pm_rank, world, args=(backend, device, seed),
+                              backend=backend,
+                              init_method=f"file://{tmp}/store",
+                              timeout=PM_COLLECTIVE_S, join_timeout=PM_JOIN_S)
+        wall = time.perf_counter() - t0
+        name = f"{backend}-{world}"
+        for k in out:
+            out[k][name] = sum(r["launches"][k] for r in ranks)
+        ms = {k: [max(r["ms"][k][i] for r in ranks) for i in range(PM_RUNS)]
+              for k in ranks[0]["ms"]}
+        logical = logical_ms.get(world, {})
+        for k, runs in ms.items():
+            ref_k = {"gather zipf": "sharded gather",
+                     "rmw ADD zipf": "sharded rmw ADD"}[k]
+            beside = (f"{logical[ref_k]:.3f} ms" if ref_k in logical
+                      else "not run")
+            log(f"phase 13 {name} ({ranks[0]['transport']}) {k:13s} warm "
+                f"median {sorted(runs)[len(runs) // 2]:9.3f} ms per call "
+                f"(slowest rank), runs "
+                f"{' '.join(f'{t:.3f}' for t in runs)}; phase 11 logical "
+                f"mesh {world}: {beside}")
+        log(f"phase 13 {name}: bit for bit on every rank and call; "
+            f"ShardStats equal NumPy; launches per rank per call B1 1/0, "
+            f"B2 0/1 ({out['row_table_gather'][name]} B1, "
+            f"{out['row_table_rmw'][name]} B2 over 4 calls x {world} "
+            f"ranks); {ranks[0]['collectives']} collectives per gather; "
+            f"peak per rank "
+            f"{[round(r['peak_gib'], 2) for r in ranks]} GiB allocated; "
+            f"rows per rank {[r['rows'] for r in ranks]}; devices "
+            f"{sorted({r['device'] for r in ranks})}; {wall:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2793,8 +3003,9 @@ def main(argv=None) -> int:
     traffic_launches = phase_replay(dev)
     kvpool_launches = phase_kvpool(dev, args.seed)
     serve_launches = phase_serve(dev, args.seed)
-    sharded_launches = phase_sharded(dev, args.seed)
+    sharded_launches, logical_ms = phase_sharded(dev, args.seed)
     train_launches = phase_train(dev, args.seed)
+    process_launches = phase_process_mesh(dev, args.seed, logical_ms)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -2802,6 +3013,7 @@ def main(argv=None) -> int:
         row["serve_launches"] = serve_launches[row["name"]]
         row["sharded_launches"] = sharded_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
+        row["process_mesh_launches"] = process_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -289,6 +289,11 @@ class Scheduler:
                  strict: Optional[bool] = None):
         self.engine = engine if engine is not None else Engine(
             tile_size=tile_size, optimize=optimize, use_kernel=use_kernel)
+        # an engine the plan IR cannot drive says why (a sharded engine
+        # over a process mesh)
+        why = getattr(self.engine, "unschedulable", None)
+        if why:
+            raise NotImplementedError(why)
         self.max_batch = int(max_batch)
         if verify is None:
             verify = os.environ.get(

@@ -1,13 +1,9 @@
-"""ShardedEngine: the bulk-access engine over a mesh of logical shards.
+"""ShardedEngine: the bulk-access engine over a mesh of shards.
 
 The port of the JAX package's ``distributed.engine``. Paper §6.6, option 1:
 multiple DX100 units partition the address range, and each bulk request
 stream is split by owner unit so that the reorder / coalesce / interleave
-pipeline runs *next to the memory that holds the rows*. The reference's
-``shard_map`` over m devices becomes tensors with a leading shard axis:
-every shard's stream slice is one row of an ``(m, per)`` tensor, each
-exchange step runs once for all shards in batched tensor ops, and its
-``all_to_all`` is the transpose of the ``(m, m, C)`` bucket view. Per call
+pipeline runs *next to the memory that holds the rows*. Per call
 (DESIGN.md §5):
 
   1. **dedup before the fabric** — each shard's slice is deduped
@@ -22,15 +18,31 @@ exchange step runs once for all shards in batched tensor ops, and its
   4. the owners serve the landed rows and gather values return through
      the inverse exchange; RMWs are one-way.
 
-Owner-local execution: with every shard on one device, shard ``o``'s
-local row ``r`` is global row ``o * rows_per + r``, so all owners' takes
-are ONE ``bulk_gather`` and all owners' updates ONE ``bulk_rmw`` over the
-table, with ``use_kernel`` as the engine's: on a 2-D table they run
-through the row-table kernels B1/B2 (the reference takes and
-``bulk_rmw``s each shard's slice). Where shards sit on several devices,
-each device's owners are served there (``.to(device)``) and the results
-come back. Results equal the single-device engine's, gathers and integer
-RMWs bit for bit.
+Two meshes (``distributed.mesh``):
+
+  * a logical ``Mesh``: the reference's ``shard_map`` over m devices
+    becomes tensors with a leading shard axis. Every shard's stream slice
+    is one row of an ``(m, per)`` tensor, each exchange step runs once for
+    all shards, and ``all_to_all`` is the transpose of the ``(m, m, C)``
+    bucket view. The whole table lies on the one device, so shard ``o``'s
+    local row ``r`` is global row ``o * rows_per + r``: the owners' takes
+    are ONE ``bulk_gather`` and their updates ONE ``bulk_rmw`` over the
+    table, and the exchange moves lane positions, not rows.
+  * a ``ProcessMesh``: the reference's ``shard_map`` bodies run as each
+    rank's own code (a leading shard axis of 1), and every ``all_to_all``
+    is ``exchange.all_to_all`` over the group. SPMD contract, as the
+    reference's global arrays: every rank passes its own table slice
+    (rows ``rank_rows(n_rows)``) and the *same* global stream (values and
+    ``valid`` included); every rank computes the same exchange plan from
+    it. A gather returns the rank's block of lanes ``rank_lanes(n)`` in
+    the stream's order (with "owner" placement one more, ragged exchange
+    puts the lanes back); an RMW returns the rank's updated slice;
+    ``gather_blocks`` puts blocks or slices back together.
+
+Owner-local execution runs with ``use_kernel`` as the engine's: on a 2-D
+table through the row-table kernels B1/B2, once per call on a logical mesh
+and once per rank on a process mesh. Results equal the single-device
+engine's, gathers and integer RMWs bit for bit.
 
 Lane *placement* is a plan decision: the host-side planner
 (``_measure_exchange``) compares the natural "block" slicing with an
@@ -43,9 +55,12 @@ stale capacity would drop lanes); NumPy streams are measured every call.
 
 The route (exchange) and exec (owner-local compute) stages run fused in
 ``sharded_gather``/``sharded_rmw`` or split (``gather_start``/``_finish``,
-``rmw_start``/``_finish``) so the emit stage can issue every sharded
-node's exchange before any node's exec. Importing this module registers
-the **"sharded" plan backend** (``repro_torch.plan.emit``).
+``rmw_start``/``_finish``): the start issues the index exchange (on a
+process mesh as an asynchronous collective) so the emit stage can put
+every sharded node's exchange in flight before any node's exec. Importing
+this module registers the **"sharded" plan backend**
+(``repro_torch.plan.emit``); it drives logical meshes only (a process
+mesh's plans would have to be agreed across ranks, ROADMAP A14b).
 """
 from __future__ import annotations
 
@@ -58,10 +73,18 @@ import torch
 
 from repro_torch import plan
 from repro_torch.core import bulk_ops, interop, isa
+from repro_torch.core.device import resolve_device
 from repro_torch.core.engine import Engine
 from repro_torch.distributed import exchange
-from repro_torch.distributed.mesh import as_mesh
+from repro_torch.distributed.mesh import (ProcessMesh, as_mesh,
+                                          shard_row_ranges)
 from repro_torch.plan.cost import CostModel, ExchangePlan
+
+#: why a ``Scheduler`` refuses an engine over a process mesh
+PROCESS_MESH_UNSCHEDULED = (
+    "the Scheduler, the 'sharded' plan backend, AccessService(mesh=) and "
+    "the apps run on logical meshes only: over a ProcessMesh their plans "
+    "would have to be agreed across ranks (ROADMAP A14b)")
 
 
 class ShardStats:
@@ -77,17 +100,23 @@ class ShardStats:
     ``idx_bytes_raw`` what raw int32 lanes would have cost, and
     ``bytes_on_wire`` adds the value payload. ``overlap_fraction`` is 1.0
     when the exchange had completed before the exec stage dispatched
-    (split path), 0.0 when not, None for fused calls.
+    (split path), 0.0 when not, None for fused calls. ``transport`` says
+    how the exchange moved ("logical": within one device; on a process
+    mesh "nccl", "gloo" or "gloo+host", ``exchange.transport``) and
+    ``collectives`` how many collectives the call made on every rank (the
+    one gathering these counts included).
 
     The counts stay on the device until a property reads them (so
     back-to-back sharded calls keep dispatching); the first read copies
-    all of them to NumPy and drops the device tensors.
+    all of them to NumPy and drops the device tensors. On a process mesh
+    every rank holds every shard's counts, gathered within the call.
     """
 
     def __init__(self, sent, received, unique, *, placement: str = "block",
                  codec: str = "raw", capacity: int = 0, idx_bytes: int = 0,
                  idx_bytes_raw: int = 0, bytes_on_wire: int = 0,
-                 overlap: Optional[float] = None):
+                 overlap: Optional[float] = None,
+                 transport: str = "logical", collectives: int = 0):
         self._device: Optional[tuple] = (sent, received, unique)
         self._host: Optional[tuple] = None
         self.placement = placement
@@ -96,6 +125,8 @@ class ShardStats:
         self.idx_bytes = int(idx_bytes)
         self.idx_bytes_raw = int(idx_bytes_raw)
         self.bytes_on_wire = int(bytes_on_wire)
+        self.transport = transport
+        self.collectives = int(collectives)
         self._overlap = overlap
 
     def _materialize(self) -> tuple:
@@ -158,8 +189,10 @@ class ExchangeInflight:
     """Handle for a dispatched route stage awaiting its exec stage
     (``gather_start``/``rmw_start`` -> ``*_finish``)."""
     kind: str
-    route: tuple = ()
-    perm: object = None
+    route: dict = dataclasses.field(default_factory=dict)
+    wire: tuple = ()             # exchanges in flight (index, payload)
+    perm: object = None          # owner placement: device permutation
+    perm_host: object = None     # ... and its host copy (process mesh)
     n: int = 0
     xplan: ExchangePlan = None
     cap: int = 0
@@ -168,6 +201,7 @@ class ExchangeInflight:
     value_nbytes: int = 0
     op: str = "ADD"
     unsigned: bool = False
+    collectives: int = 0
     done: object = None          # CUDA event recorded after the route
 
 
@@ -179,14 +213,36 @@ def _host(x) -> Optional[np.ndarray]:
     return np.asarray(x)
 
 
+def gather_blocks(out, mesh) -> torch.Tensor:
+    """Put the per-rank results of a process mesh back together, on every
+    rank: gather blocks (``rank_lanes``) into the whole ``(n, ...)``
+    result, or RMW slices (``rank_rows``) into the whole table. Both are
+    the ceil-div split, so one function serves both. On a logical mesh
+    (or an int) ``out`` is already whole and comes back as it is."""
+    if not isinstance(mesh, ProcessMesh):
+        return out
+    out = out if isinstance(out, torch.Tensor) else torch.as_tensor(out)
+    out = out.to(mesh.device)
+    k = torch.tensor([int(out.shape[0])], dtype=torch.int64,
+                     device=mesh.device)
+    sizes = exchange.all_gather(k, mesh).reshape(-1).tolist()
+    per = max(sizes)
+    pad = out.new_zeros((per,) + tuple(out.shape[1:]))
+    pad[:out.shape[0]] = out
+    blocks = exchange.all_gather(pad, mesh)
+    return torch.cat([blocks[r, :s] for r, s in enumerate(sizes)])
+
+
 class ShardedEngine(Engine):
     """Drop-in ``Engine`` whose bulk streams span a mesh of shards.
 
-    ``mesh``: None (one shard per visible card), an int shard count
-    (all shards round-robin on the visible cards: one card holds them
-    all), or a ``distributed.mesh.Mesh``. ``device`` as for ``Engine``
-    (None = CUDA); for a CPU engine the mesh lies on the CPU. Everything
-    else matches ``Engine``; a 1-shard mesh gives single-device results.
+    ``mesh``: None (one logical shard per visible device), an int shard
+    count (logical shards, all on the engine's device), a logical
+    ``distributed.Mesh``, or a ``distributed.ProcessMesh`` (one shard per
+    rank; the engine runs on the mesh's device). ``device`` as for
+    ``Engine`` (None = CUDA; for a process mesh, the mesh's device).
+    Everything else matches ``Engine``; a 1-shard mesh gives single-device
+    results.
     """
 
     plan_backend = "sharded"     # registered below at import time
@@ -198,16 +254,73 @@ class ShardedEngine(Engine):
     def __init__(self, mesh=None, *, tile_size: int = 16384,
                  optimize: bool = True, use_kernel: bool = False,
                  cost_model: Optional[CostModel] = None, device=None):
+        if isinstance(mesh, ProcessMesh):
+            if device is not None and resolve_device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the process "
+                                 f"mesh's device {mesh.device}")
+            device = mesh.device
         super().__init__(tile_size=tile_size, optimize=optimize,
                          use_kernel=use_kernel, device=device)
         self.mesh = as_mesh(mesh, device=self.device)
         self.axis = self.mesh.axis
         self.num_shards = int(self.mesh.num_shards)
+        self.process = isinstance(self.mesh, ProcessMesh)
+        if self.process:
+            self.rank = self.mesh.rank
+            self.transport = exchange.transport(self.mesh, self.device)
+            self.unschedulable = PROCESS_MESH_UNSCHEDULED
+            self._shards = torch.tensor([self.rank], device=self.device)
+        else:
+            self.rank = None
+            self.transport = "logical"
+            self._shards = torch.arange(self.num_shards, device=self.device)
         # (id(idx), id(valid), n_rows, kind, ns) -> (idx, valid, versions,
         # meas, perm): strong refs keep the ids stable
         self._xplan_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.exchange_cost = cost_model or CostModel()
         self.last_shard_stats: Optional[ShardStats] = None
+
+    # -- what this process holds ----------------------------------------------
+
+    def rank_rows(self, n_rows: int) -> tuple:
+        """The half-open global rows whose table slice this process passes:
+        its own shard's on a process mesh, all of them on a logical one."""
+        if not self.process:
+            return 0, int(n_rows)
+        return tuple(shard_row_ranges(n_rows, self.num_shards)[self.rank])
+
+    def rank_lanes(self, n: int) -> tuple:
+        """The half-open lanes of an ``n``-lane stream whose gather results
+        this process returns (the reference's lane-sharded output): its
+        block on a process mesh, all of them on a logical one."""
+        n = int(n)
+        if not self.process:
+            return 0, n
+        per = -(-n // self.num_shards)
+        return min(self.rank * per, n), min((self.rank + 1) * per, n)
+
+    def _n_rows(self, table: torch.Tensor, n_rows: Optional[int]) -> int:
+        """The global table's row count. On a process mesh the caller
+        gives it (``n_rows``), and the rank's slice must be exactly its
+        ``rank_rows``."""
+        local = int(table.shape[0])
+        if not self.process:
+            if n_rows is not None and int(n_rows) != local:
+                raise ValueError(f"n_rows={n_rows} but the table has "
+                                 f"{local} rows (a logical mesh takes the "
+                                 "whole table)")
+            return local
+        if n_rows is None:
+            raise ValueError(
+                "a process mesh needs n_rows, the whole table's row count: "
+                "each rank passes its slice rank_rows(n_rows)")
+        lo, hi = self.rank_rows(n_rows)
+        if local != hi - lo:
+            raise ValueError(
+                f"rank {self.rank} passed {local} table rows; its slice of "
+                f"a {n_rows}-row table is rows [{lo}, {hi}): pass each rank "
+                "its own slice (rank_rows)")
+        return int(n_rows)
 
     # -- host-side exchange planning ----------------------------------------
 
@@ -427,7 +540,16 @@ class ShardedEngine(Engine):
         return idx, mask, per
 
     def _shard_view(self, x: torch.Tensor, perm, per: int):
-        """A padded lane stream in its placement, as ``(m, per, ...)``."""
+        """The lanes of a stream this process computes, in their
+        placement: ``(m, per, ...)`` on a logical mesh, the rank's own
+        ``(1, per, ...)`` on a process mesh. ``x`` is padded to
+        ``per * m`` lanes (a process mesh also takes it unpadded: its
+        pad lanes are masked)."""
+        if self.process:
+            lo = self.rank * per
+            pos = perm[lo:lo + per] if perm is not None else \
+                torch.arange(lo, lo + per, device=self.device)
+            return x[pos.clamp(max=x.shape[0] - 1)][None]
         if perm is not None:
             x = x[perm]
         return x.reshape((self.num_shards, per) + tuple(x.shape[1:]))
@@ -446,7 +568,7 @@ class ShardedEngine(Engine):
             nb *= int(d)
         return nb
 
-    # -- the exchange, for all shards at once ---------------------------------
+    # -- the exchange ---------------------------------------------------------
 
     def _all_to_all(self, x: torch.Tensor) -> torch.Tensor:
         """Bucket ``j`` of shard ``i`` -> bucket ``i`` of shard ``j``:
@@ -456,51 +578,95 @@ class ShardedEngine(Engine):
         v = x.reshape((ns, ns, -1) + tuple(x.shape[2:]))
         return v.transpose(0, 1).reshape(x.shape)
 
+    def _swap(self, x: torch.Tensor, fl: ExchangeInflight
+              ) -> exchange.Exchange:
+        """Swap the bucket buffers ``(S, m*C, ...)`` of the shards this
+        process computes: the transpose on a logical mesh (done at once),
+        one asynchronous collective over the group on a process mesh
+        (counted on ``fl``)."""
+        if not self.process:
+            return exchange.Exchange(None, self._all_to_all(x), None)
+        fl.collectives += 1
+        return exchange.all_to_all(x[0], self.mesh, async_op=True).then(
+            lambda got: got[None])
+
     def _split_by_owner(self, u_idx, u_valid, rows_per: int):
         """Own/remote split of the deduped slices plus the full (diagonal
-        included) post-dedup routing counts ``sent`` ``(m, m)``."""
+        included) post-dedup routing counts ``sent`` ``(S, m)``."""
         ns = self.num_shards
         owner = (u_idx // rows_per).clamp(0, ns - 1)
         local_row = u_idx - owner * rows_per
-        me = torch.arange(ns, device=self.device)[:, None]
+        me = self._shards[:, None]
         is_local = u_valid & (owner == me)
         is_remote = u_valid & (owner != me)
         okey = torch.where(u_valid, owner, ns).to(torch.int64)
-        sent = torch.zeros((ns, ns + 1), dtype=torch.int32,
+        sent = torch.zeros((okey.shape[0], ns + 1), dtype=torch.int32,
                            device=self.device).scatter_add_(
             1, okey, torch.ones_like(okey, dtype=torch.int32))[:, :ns]
         return local_row, is_local, is_remote, sent
 
-    def _wire_indices(self, send_idx, send_valid, *, rows_per: int,
-                      cap: int, codec: str):
+    def _send_indices(self, send_idx, send_valid, fl: ExchangeInflight):
         """Ship the remote index spill (raw lanes with a -1 sentinel, or
-        the codec's words); returns the owners' ``(local_rows, valid)``
-        ``(m, m*C)``."""
-        if codec == "raw":
-            recv = self._all_to_all(torch.where(send_valid, send_idx, -1))
-            recv_valid = recv >= 0
-            r = recv.clamp(min=0)
-            local = r - (r // rows_per) * rows_per
-            return torch.where(recv_valid, local, 0), recv_valid
-        enc_fn, dec_fn, _ = exchange.CODECS[codec]
+        the codec's words); the exchange's ``wait()`` gives the owners'
+        ``(local_rows, valid)`` ``(S, m*C)``."""
+        rows_per, ns = fl.rows_per, self.num_shards
+        if fl.codec == "raw":
+            def land(recv):
+                ok = recv >= 0
+                r = recv.clamp(min=0)
+                return torch.where(ok, r - (r // rows_per) * rows_per, 0), ok
+            return self._swap(torch.where(send_valid, send_idx, -1),
+                              fl).then(land)
+        enc_fn, dec_fn, _ = exchange.CODECS[fl.codec]
         words = enc_fn(send_idx, send_valid, rows_per=rows_per,
-                       num_shards=self.num_shards)
-        return dec_fn(self._all_to_all(words), rows_per=rows_per,
-                      num_shards=self.num_shards, capacity=cap)
+                       num_shards=ns)
+        return self._swap(words, fl).then(lambda w: dec_fn(
+            w, rows_per=rows_per, num_shards=ns, capacity=fl.cap))
 
     def _landed(self, is_local, local_row, r_local, recv_valid):
-        """Each owner's landed stream ``(m, W)``: its own rows, then the
+        """Each owner's landed stream ``(S, W)``: its own rows, then the
         received buckets (source ``s``'s bucket at ``per + s*C``)."""
         cat_idx = torch.cat([torch.where(is_local, local_row, 0), r_local],
                             1)
         return cat_idx, torch.cat([is_local, recv_valid], 1)
+
+    def _land(self, fl: ExchangeInflight) -> dict:
+        """The owners' landed streams (``cat_idx``, ``cat_valid``), their
+        counts and, on a logical mesh, where each deduped lane landed.
+        A logical mesh's exchange is done at once, so its route stage
+        calls this; a process mesh's exec stage calls it once the index
+        exchange has arrived."""
+        r = fl.route
+        if "cat_idx" in r:
+            return r
+        r_local, recv_valid = fl.wire[0].wait()
+        cat_idx, cat_valid = self._landed(r["is_local"], r["local_row"],
+                                          r_local, recv_valid)
+        r.update(cat_idx=cat_idx, cat_valid=cat_valid,
+                 n_recv=cat_valid.sum(1, dtype=torch.int32),
+                 n_uniq=exchange.masked_unique_count(cat_idx, cat_valid))
+        if self.process:
+            return r
+        lane_pos = self._lane_positions(r["is_local"], r["order"],
+                                        r["slot"], fl.cap)
+        if fl.kind == "gather":
+            r["lane_pos"] = lane_pos
+        else:
+            # the combined payload travels as its lanes' landed positions:
+            # src[p] is the deduped lane whose update landed at position p
+            drop = cat_idx.numel()
+            r["src"] = torch.full((drop + 1,), -1, dtype=torch.int64,
+                                  device=self.device).scatter_(
+                0, torch.where(lane_pos >= 0, lane_pos, drop).reshape(-1),
+                torch.arange(lane_pos.numel(), device=self.device))[:drop]
+        return r
 
     def _lane_positions(self, is_local, order, slot, cap: int):
         """Where each deduped lane ``(s, j)`` of every shard landed, as a
         flat index into the owners' ``(m, W)`` landed streams: an own lane
         at ``s*W + j``, a remote one where its bucket slot ``o*C + r``
         lands on owner ``o`` (``o*W + per + s*C + r``); -1 for lanes that
-        landed nowhere. On one card the exchange moves these positions,
+        landed nowhere. On one device the exchange moves these positions,
         not the rows: values are read or written once, at the owners."""
         ns, per = is_local.shape
         W = per + ns * cap
@@ -521,67 +687,53 @@ class ShardedEngine(Engine):
         which sizes the owners' bulk op to the lanes that landed."""
         return cat_valid.reshape(-1).nonzero().squeeze(1)
 
+    def _overlap(self, fl: ExchangeInflight) -> float:
+        """1.0 when the route's exchanges had completed at the exec stage
+        (a non-blocking query: the collectives' ``is_completed()`` on a
+        process mesh, the route's CUDA event on a logical one)."""
+        if self.process:
+            return 1.0 if all(w.is_completed() for w in fl.wire) else 0.0
+        return 1.0 if fl.done is None or fl.done.query() else 0.0
+
+    def _mark_route(self, fl: ExchangeInflight) -> ExchangeInflight:
+        if not self.process and fl.wire and self.device.type == "cuda":
+            fl.done = torch.cuda.Event()
+            fl.done.record()
+        return fl
+
     # -- owner-local execution ------------------------------------------------
 
-    def _owner_gather(self, table: torch.Tensor, rows: torch.Tensor,
-                      owners: torch.Tensor):
-        """``table[rows]`` for landed lanes owned by ``owners`` (global
-        rows): one ``bulk_gather`` per device holding owners (B1 on a 2-D
+    def _owner_gather(self, table: torch.Tensor, rows: torch.Tensor):
+        """``table[rows]`` on the table this process holds (B1 on a 2-D
         table with ``use_kernel``)."""
-        def take(dev, r):
-            return bulk_ops.bulk_gather(
-                table.to(dev), r, sort=self.optimize, dedup=self.optimize,
-                use_kernel=self.use_kernel and table.ndim == 2, device=dev)
-        if len(self.mesh.devices) == 1:
-            return take(self.device, rows)
-        out = table.new_zeros((rows.shape[0],) + tuple(table.shape[1:]))
-        entry = owners % len(self.mesh.devices)
-        for j, dev in enumerate(self.mesh.devices):
-            sel = (entry == j).nonzero().squeeze(1)
-            out[sel] = take(dev, rows[sel].to(dev)).to(self.device)
-        return out
+        return bulk_ops.bulk_gather(
+            table, rows, sort=self.optimize, dedup=self.optimize,
+            use_kernel=self.use_kernel and table.ndim == 2,
+            device=self.device)
 
-    def _owner_rmw(self, table, rows, vals, owners, *, op: str,
-                   unsigned: bool, rows_per: int):
-        """Landed updates applied to their (global) rows: one
-        ``bulk_rmw`` per device holding owners (B2 on a 2-D table with
-        ``use_kernel``)."""
-        def apply(dev, r, v):
-            return bulk_ops.bulk_rmw(
-                table.to(dev), r, v, op=op, optimize=True,
-                use_kernel=self.use_kernel and table.ndim == 2,
-                unsigned=unsigned, device=dev)
-        if len(self.mesh.devices) == 1:
-            return apply(self.device, rows, vals)
-        nd = len(self.mesh.devices)
-        new = table.clone()
-        for j, dev in enumerate(self.mesh.devices):
-            sel = ((owners % nd) == j).nonzero().squeeze(1)
-            res = apply(dev, rows[sel].to(dev), vals[sel].to(dev)).to(
-                self.device)
-            for o in range(j, self.num_shards, nd):
-                lo = min(o * rows_per, table.shape[0])
-                hi = min((o + 1) * rows_per, table.shape[0])
-                new[lo:hi] = res[lo:hi]
-        return new
+    def _owner_rmw(self, table, rows, vals, *, op: str, unsigned: bool):
+        """Landed updates applied to the table this process holds (B2 on a
+        2-D table with ``use_kernel``)."""
+        return bulk_ops.bulk_rmw(
+            table, rows, vals, op=op, optimize=True,
+            use_kernel=self.use_kernel and table.ndim == 2,
+            unsigned=unsigned, device=self.device)
 
     # -- gather ---------------------------------------------------------------
 
     def gather_start(self, table, idx, *, valid=None,
                      placement: Optional[str] = None,
-                     codec: Optional[str] = None) -> ExchangeInflight:
+                     codec: Optional[str] = None,
+                     n_rows: Optional[int] = None) -> ExchangeInflight:
         """Dispatch the route stage (dedup -> split -> pack -> index
         exchange) of a sharded gather; only the table's shape is read.
         Finish with ``gather_finish``."""
-        fl = self._gather_route(table, idx, valid, placement, codec)
-        if fl.kind == "gather" and self.device.type == "cuda":
-            fl.done = torch.cuda.Event()
-            fl.done.record()
-        return fl
+        return self._mark_route(self._gather_route(
+            table, idx, valid, placement, codec, n_rows))
 
-    def _gather_route(self, table, idx, valid, placement, codec):
+    def _gather_route(self, table, idx, valid, placement, codec, n_rows):
         table = self._tensor(table)
-        n_rows = int(table.shape[0])
+        n_rows = self._n_rows(table, n_rows)
         idx_t = bulk_ops._as_index(self._tensor(idx)).reshape(-1)
         n = int(idx_t.shape[0])
         if n == 0:
@@ -594,39 +746,32 @@ class ShardedEngine(Engine):
         idx_p, mask, per = self._pad_stream(idx_t.clamp(0, n_rows - 1),
                                             valid)
         cap, codec_eff, perm_t = self._concretize(xplan, perm, per)
-        rows_per = -(-n_rows // self.num_shards)
-        ns = self.num_shards
+        fl = ExchangeInflight(
+            kind="gather", perm=perm_t, perm_host=perm, n=n, xplan=xplan,
+            cap=cap, codec=codec_eff,
+            rows_per=-(-n_rows // self.num_shards),
+            value_nbytes=self._row_nbytes(table))
         idx_l = self._shard_view(idx_p, perm_t, per)
         mask_l = self._shard_view(mask, perm_t, per)
         u_idx, u_valid, inv, _ = exchange.dedup_stream(idx_l, mask_l)
         local_row, is_local, is_remote, sent = self._split_by_owner(
-            u_idx, u_valid, rows_per)
+            u_idx, u_valid, fl.rows_per)
         send_idx, send_valid, order, slot, _ = exchange.partition_by_owner(
-            u_idx, is_remote, rows_per=rows_per, num_shards=ns,
-            capacity=cap)
-        r_local, recv_valid = self._wire_indices(
-            send_idx, send_valid, rows_per=rows_per, cap=cap,
-            codec=codec_eff)
-        cat_idx, cat_valid = self._landed(is_local, local_row, r_local,
-                                          recv_valid)
-        n_recv = cat_valid.sum(1, dtype=torch.int32)
-        n_uniq = exchange.masked_unique_count(cat_idx, cat_valid)
-        lane_pos = self._lane_positions(is_local, order, slot, cap)
-        return ExchangeInflight(
-            kind="gather",
-            route=(inv, cat_idx, cat_valid, lane_pos, sent, n_recv, n_uniq,
-                   mask_l),
-            perm=perm_t, n=n, xplan=xplan, cap=cap, codec=codec_eff,
-            rows_per=rows_per, value_nbytes=self._row_nbytes(table))
+            u_idx, is_remote, rows_per=fl.rows_per,
+            num_shards=self.num_shards, capacity=cap)
+        fl.wire = (self._send_indices(send_idx, send_valid, fl),)
+        fl.route = dict(inv=inv, is_local=is_local, local_row=local_row,
+                        order=order, slot=slot, sent=sent, mask_l=mask_l)
+        if not self.process:
+            self._land(fl)
+        return fl
 
     def gather_finish(self, table, fl: ExchangeInflight):
         """Exec stage of ``gather_start``: owner-local takes, the inverse
         value exchange and lane unpacking. Records on
         ``last_shard_stats`` whether the route had completed (a
-        non-blocking event query)."""
-        overlap = None
-        if fl.kind == "gather":
-            overlap = 1.0 if fl.done is None or fl.done.query() else 0.0
+        non-blocking query)."""
+        overlap = self._overlap(fl) if fl.kind == "gather" else None
         return self._gather_exec(table, fl, overlap)
 
     def _gather_exec(self, table, fl: ExchangeInflight, overlap):
@@ -635,38 +780,96 @@ class ShardedEngine(Engine):
             self.last_shard_stats = None
             return table[torch.zeros((0,), dtype=torch.int64,
                                      device=self.device)]
-        (inv, cat_idx, cat_valid, lane_pos, sent, n_recv, n_uniq,
-         mask_l) = fl.route
+        r = self._land(fl)
+        cat_idx, cat_valid = r["cat_idx"], r["cat_valid"]
+        if self.process:
+            out = self._gather_owned(table, fl, cat_idx, cat_valid)
+        else:
+            out = self._gather_logical(table, fl, cat_idx, cat_valid)
+        self._record_stats(r["sent"], r["n_recv"], r["n_uniq"], fl, overlap)
+        return out
+
+    def _gather_logical(self, table, fl, cat_idx, cat_valid):
+        """Every owner's take at once over the whole table; each lane then
+        reads the row its deduped lane landed on."""
+        r = fl.route
         ns, W = cat_idx.shape
         base = (torch.arange(ns, device=self.device) * fl.rows_per)[:, None]
-        # the owners take every landed row (own, then received) at once
         keep = self._kept(cat_valid)
-        vals = self._owner_gather(table, (cat_idx + base).reshape(-1)[keep],
-                                  keep // W)
-        # each lane reads the row its deduped lane landed on
+        vals = self._owner_gather(table, (cat_idx + base).reshape(-1)[keep])
+        lane_pos = r["lane_pos"]
         at = torch.cumsum(cat_valid.reshape(-1), 0) - 1
-        src = at[torch.gather(lane_pos, 1, inv).clamp(min=0)].clamp(min=0)
+        src = at[torch.gather(lane_pos, 1, r["inv"]).clamp(min=0)].clamp(
+            min=0)
         if keep.numel():
             out = vals[src.reshape(-1)]
         else:
             out = table.new_zeros((src.numel(),) + tuple(table.shape[1:]))
-        out.masked_fill_(~mask_l.reshape((-1,) + (1,) * (out.ndim - 1)), 0)
+        out.masked_fill_(~r["mask_l"].reshape((-1,) + (1,) * (out.ndim - 1)),
+                         0)
         if fl.perm is not None:
             # undo the placement permutation (every lane written once)
             out = torch.zeros_like(out).index_copy_(0, fl.perm, out)
-        self._record_stats(sent, n_recv, n_uniq, fl, overlap)
         return out[:fl.n]
+
+    def _gather_owned(self, table, fl, cat_idx, cat_valid):
+        """This rank's take from its slice (own lanes and the received
+        buckets), the received buckets' rows back to their sources, and
+        the rank's block of lanes."""
+        r = fl.route
+        per = int(r["is_local"].shape[1])
+        row = tuple(table.shape[1:])
+        keep = self._kept(cat_valid)
+        landed = table.new_zeros((int(cat_idx.shape[1]),) + row)
+        if keep.numel():
+            landed[keep] = self._owner_gather(table,
+                                              cat_idx.reshape(-1)[keep])
+        back = self._swap(landed[None, per:], fl).wait()
+        remote = exchange.unpack_result(back, r["order"], r["slot"],
+                                        ~r["is_local"])
+        lane = (1, per) + (1,) * len(row)
+        u_vals = torch.where(r["is_local"].reshape(lane), landed[None, :per],
+                             remote)
+        out = u_vals[0][r["inv"][0].to(torch.int64)]
+        out.masked_fill_(~r["mask_l"][0].reshape((per,) + lane[2:]), 0)
+        if fl.perm_host is not None:
+            out = self._unpermute(out, fl)
+        lo, hi = self.rank_lanes(fl.n)
+        return out[:hi - lo]
+
+    def _unpermute(self, out: torch.Tensor, fl: ExchangeInflight):
+        """Owner placement on a process mesh: this rank computed the lanes
+        ``perm[rank*per:(rank+1)*per]``; one ragged exchange sends each to
+        the rank whose block holds it. Every rank derives both sides'
+        counts from the replicated permutation."""
+        perm = np.asarray(fl.perm_host, np.int64)
+        per, m, me = int(out.shape[0]), self.num_shards, self.rank
+        mine = perm[me * per:(me + 1) * per]
+        dest = mine // per
+        order = np.argsort(dest, kind="stable")
+        to_me = np.nonzero(perm // per == me)[0]
+        got = exchange.all_to_all(
+            out[torch.as_tensor(order, device=self.device)], self.mesh,
+            send_counts=np.bincount(dest, minlength=m),
+            recv_counts=np.bincount(to_me // per, minlength=m))
+        fl.collectives += 1
+        pos = torch.as_tensor(perm[to_me] - me * per, device=self.device)
+        return torch.zeros_like(out).index_copy_(0, pos, got)
 
     def sharded_gather(self, table, idx, *, valid=None,
                        placement: Optional[str] = None,
-                       codec: Optional[str] = None) -> torch.Tensor:
+                       codec: Optional[str] = None,
+                       n_rows: Optional[int] = None) -> torch.Tensor:
         """``C = table[idx]`` with dedup and the reorder->coalesce pipeline
         running owner-locally for every shard; sets ``last_shard_stats``.
 
         ``valid``: optional ``(len(idx),)`` bool mask — False lanes never
         enter the exchange and read 0 (the scheduler's coalesce padding).
-        ``placement``/``codec`` pin the exchange plan."""
-        fl = self._gather_route(table, idx, valid, placement, codec)
+        ``placement``/``codec`` pin the exchange plan. On a process mesh
+        ``table`` is this rank's slice, ``n_rows`` the whole table's rows
+        (required) and the result this rank's block of
+        lanes (``rank_lanes``)."""
+        fl = self._gather_route(table, idx, valid, placement, codec, n_rows)
         return self._gather_exec(table, fl, None)
 
     # -- RMW ------------------------------------------------------------------
@@ -674,29 +877,27 @@ class ShardedEngine(Engine):
     def rmw_start(self, table, idx, values, *, op: str = "ADD",
                   valid=None, placement: Optional[str] = None,
                   codec: Optional[str] = None,
-                  unsigned: Optional[bool] = None) -> ExchangeInflight:
+                  unsigned: Optional[bool] = None,
+                  n_rows: Optional[int] = None) -> ExchangeInflight:
         """Route stage of a sharded RMW: pre-combine, split, and ship the
         index spill and the combined payload; only the table's shape is
         read. ``rmw_finish`` applies the landed updates."""
-        fl = self._rmw_route(table, idx, values, op, valid, placement,
-                             codec, unsigned)
-        if fl.kind == "rmw" and self.device.type == "cuda":
-            fl.done = torch.cuda.Event()
-            fl.done.record()
-        return fl
+        return self._mark_route(self._rmw_route(
+            table, idx, values, op, valid, placement, codec, unsigned,
+            n_rows))
 
     def _rmw_route(self, table, idx, values, op, valid, placement, codec,
-                   unsigned):
+                   unsigned, n_rows):
         if op not in isa.RMW_OPS:
             raise ValueError(f"op {op!r} not in RMW_OPS {isa.RMW_OPS} "
                              "(sharded RMW needs reorder-safe combines)")
         unsigned = self._unsigned(table, unsigned)
         table = self._tensor(table)
+        n_rows = self._n_rows(table, n_rows)
         idx_t = bulk_ops._as_index(self._tensor(idx)).reshape(-1)
         n = int(idx_t.shape[0])
         if n == 0:
             return ExchangeInflight(kind="rmw:empty")
-        n_rows = int(table.shape[0])
         row = tuple(table.shape[1:])
         vals = self._tensor(values).reshape((n,) + row)
         if vals.dtype != table.dtype:
@@ -711,47 +912,38 @@ class ShardedEngine(Engine):
             in_range &= self._tensor(valid).reshape(-1).to(torch.bool)
         idx_p, mask, per = self._pad_stream(idx_t, in_range)
         pad = per * self.num_shards - n
-        if pad:
+        if pad and not self.process:
             vals = torch.cat([vals, vals.new_zeros((pad,) + row)])
         cap, codec_eff, perm_t = self._concretize(xplan, perm, per)
-        rows_per = -(-n_rows // self.num_shards)
+        fl = ExchangeInflight(
+            kind="rmw", n=n, xplan=xplan, cap=cap, codec=codec_eff,
+            rows_per=-(-n_rows // self.num_shards),
+            value_nbytes=self._row_nbytes(table), op=op, unsigned=unsigned)
         ns = self.num_shards
         u_idx, u_vals, u_valid, _ = exchange.combine_duplicates(
             self._shard_view(idx_p, perm_t, per),
             self._shard_view(vals, perm_t, per),
             self._shard_view(mask, perm_t, per), op=op, unsigned=unsigned)
         local_row, is_local, is_remote, sent = self._split_by_owner(
-            u_idx, u_valid, rows_per)
+            u_idx, u_valid, fl.rows_per)
         send_idx, send_valid, order, slot, _ = exchange.partition_by_owner(
-            u_idx, is_remote, rows_per=rows_per, num_shards=ns,
+            u_idx, is_remote, rows_per=fl.rows_per, num_shards=ns,
             capacity=cap)
-        r_local, recv_valid = self._wire_indices(
-            send_idx, send_valid, rows_per=rows_per, cap=cap,
-            codec=codec_eff)
-        cat_idx, cat_valid = self._landed(is_local, local_row, r_local,
-                                          recv_valid)
-        n_recv = cat_valid.sum(1, dtype=torch.int32)
-        n_uniq = exchange.masked_unique_count(cat_idx, cat_valid)
-        # the combined payload travels as its lanes' landed positions:
-        # src[p] is the deduped lane whose update landed at position p
-        lane_pos = self._lane_positions(is_local, order, slot, cap)
-        drop = cat_idx.numel()
-        src = torch.full((drop + 1,), -1, dtype=torch.int64,
-                         device=self.device).scatter_(
-            0, torch.where(lane_pos >= 0, lane_pos, drop).reshape(-1),
-            torch.arange(lane_pos.numel(), device=self.device))[:drop]
-        return ExchangeInflight(
-            kind="rmw", route=(cat_idx, cat_valid, src, u_vals, sent,
-                               n_recv, n_uniq),
-            n=n, xplan=xplan, cap=cap, codec=codec_eff, rows_per=rows_per,
-            value_nbytes=self._row_nbytes(table), op=op, unsigned=unsigned)
+        fl.wire = (self._send_indices(send_idx, send_valid, fl),)
+        fl.route = dict(is_local=is_local, local_row=local_row, order=order,
+                        slot=slot, sent=sent, u_vals=u_vals)
+        if self.process:
+            # the combined payload crosses the fabric with its indices
+            fl.wire += (self._swap(exchange.pack_payload(
+                u_vals, order, slot, num_shards=ns, capacity=cap), fl),)
+        else:
+            self._land(fl)
+        return fl
 
     def rmw_finish(self, table, fl: ExchangeInflight):
         """Exec stage of ``rmw_start``: one owner-local segment-combine +
         unique scatter over the landed (own + received) updates."""
-        overlap = None
-        if fl.kind == "rmw":
-            overlap = 1.0 if fl.done is None or fl.done.query() else 0.0
+        overlap = self._overlap(fl) if fl.kind == "rmw" else None
         return self._rmw_exec(table, fl, overlap)
 
     def _rmw_exec(self, table, fl: ExchangeInflight, overlap):
@@ -759,36 +951,57 @@ class ShardedEngine(Engine):
         if fl.kind == "rmw:empty":
             self.last_shard_stats = None
             return table
-        cat_idx, cat_valid, src, u_vals, sent, n_recv, n_uniq = fl.route
-        ns, W = cat_idx.shape
-        base = (torch.arange(ns, device=self.device) * fl.rows_per)[:, None]
+        r = self._land(fl)
+        cat_idx, cat_valid = r["cat_idx"], r["cat_valid"]
+        row = tuple(table.shape[1:])
         keep = self._kept(cat_valid)
-        vals = u_vals.reshape((-1,) + tuple(u_vals.shape[2:]))[src[keep]]
-        new = self._owner_rmw(table, (cat_idx + base).reshape(-1)[keep],
-                              vals, keep // W, op=fl.op,
-                              unsigned=fl.unsigned, rows_per=fl.rows_per)
-        self._record_stats(sent, n_recv, n_uniq, fl, overlap)
+        if self.process:
+            landed = torch.cat([r["u_vals"], fl.wire[1].wait()], 1)
+            rows = cat_idx.reshape(-1)[keep]
+            vals = landed.reshape((-1,) + row)[keep]
+        else:
+            base = (torch.arange(self.num_shards, device=self.device)
+                    * fl.rows_per)[:, None]
+            rows = (cat_idx + base).reshape(-1)[keep]
+            vals = r["u_vals"].reshape((-1,) + row)[r["src"][keep]]
+        if keep.numel() or not self.process:
+            new = self._owner_rmw(table, rows, vals, op=fl.op,
+                                  unsigned=fl.unsigned)
+        else:
+            new = table.clone()
+        self._record_stats(r["sent"], r["n_recv"], r["n_uniq"], fl, overlap)
         return new
 
     def sharded_rmw(self, table, idx, values, *, op: str = "ADD",
                     valid=None, placement: Optional[str] = None,
                     codec: Optional[str] = None,
-                    unsigned: Optional[bool] = None) -> torch.Tensor:
+                    unsigned: Optional[bool] = None,
+                    n_rows: Optional[int] = None) -> torch.Tensor:
         """``table[idx] op= values`` across the mesh, **one-way**:
         duplicate destinations merge with ``op`` on the source shard, one
         combined update per distinct row crosses the fabric, and the
         owners apply own + received updates. ``op`` in ``isa.RMW_OPS``;
         ``valid`` masks lanes out entirely; ``unsigned`` marks u32/u64
         containers (default: whether ``table`` is an unsigned NumPy
-        array). Returns the new table."""
+        array). Returns the new table — on a process mesh this rank's
+        updated slice (``table`` is the slice, ``n_rows`` as for
+        ``sharded_gather``)."""
         fl = self._rmw_route(table, idx, values, op, valid, placement,
-                             codec, unsigned)
+                             codec, unsigned, n_rows)
         return self._rmw_exec(table, fl, None)
 
     def _record_stats(self, sent, recv, uniq, fl: ExchangeInflight,
                       overlap: Optional[float]) -> ShardStats:
-        # no host transfer here: the counts stay on the device
         ns = self.num_shards
+        if self.process:
+            # every rank's counts, gathered within the call (never on a
+            # later property read, which only some ranks might make)
+            allc = exchange.all_gather(torch.cat(
+                [sent.reshape(-1), recv.reshape(-1), uniq.reshape(-1)]).to(
+                    torch.int32), self.mesh)
+            fl.collectives += 1
+            sent, recv, uniq = allc[:, :ns], allc[:, ns], allc[:, ns + 1]
+        # no host transfer here: the counts stay on the device
         offd = ns * (ns - 1)
         idx_bytes = 4 * offd * exchange.codec_wire_words(
             fl.codec, rows_per=fl.rows_per, capacity=fl.cap)
@@ -797,7 +1010,8 @@ class ShardedEngine(Engine):
             capacity=fl.cap, idx_bytes=idx_bytes,
             idx_bytes_raw=4 * offd * fl.cap,
             bytes_on_wire=idx_bytes + offd * fl.cap * fl.value_nbytes,
-            overlap=overlap)
+            overlap=overlap, transport=self.transport,
+            collectives=fl.collectives)
         self.last_shard_stats = st
         return st
 

@@ -6,8 +6,10 @@ address range across units; every bulk index stream must then be routed to
 the shard that owns each row. The per-owner sub-streams are *ragged*; each
 shard packs its requests into a static ``(num_shards, C)`` bucket buffer
 plus validity, and the exchange swaps bucket ``j`` of shard ``i`` with
-bucket ``i`` of shard ``j`` (``distributed.engine``: a transpose of the
-``(m, m, C)`` view).
+bucket ``i`` of shard ``j``: on a logical mesh a transpose of the
+``(m, m, C)`` view (``distributed.engine``), on a process mesh
+``all_to_all`` below, one ``torch.distributed.all_to_all_single`` over the
+group.
 
 The protocol (DESIGN.md §5), in order: dedup before the fabric
 (``dedup_stream``; RMW streams ``combine_duplicates``), owner-local lanes
@@ -21,6 +23,12 @@ axes: the engine calls them once for all shards with a leading shard axis
 (``(m, L)`` streams), tests with the reference's one-shard ``(L,)`` form.
 Payloads carry row axes after the lane axis. No function synchronises
 with the device: every shape is static.
+
+The collectives (``all_to_all``, ``all_gather``) move bytes: any dtype
+travels as its uint8 view, which every backend carries. On an "nccl"
+group CUDA tensors go directly; on a "gloo" group CPU tensors go directly
+and CUDA tensors through pinned host buffers (``transport``). The group's
+backend decides, once; nothing switches backend on a failure.
 """
 from __future__ import annotations
 
@@ -344,3 +352,150 @@ def codec_wire_words(codec: str, *, rows_per: int, capacity: int) -> int:
     if codec == "raw":
         return int(capacity)
     return int(CODECS[codec][2](rows_per, capacity))
+
+
+# ---------------------------------------------------------------------------
+# collectives over a process mesh (``distributed.mesh.ProcessMesh``)
+# ---------------------------------------------------------------------------
+
+def transport(mesh, device) -> str:
+    """How ``mesh``'s group moves tensors that live on ``device``: "nccl"
+    (CUDA tensors, directly), "gloo" (CPU tensors, directly) or
+    "gloo+host" (CUDA tensors through pinned host buffers). The group's
+    backend decides; there is no fallback from one to another."""
+    dev = torch.device(device)
+    if mesh.backend == "nccl":
+        if dev.type != "cuda":
+            raise ValueError(f"an nccl group exchanges CUDA tensors, got "
+                             f"{dev}")
+        return "nccl"
+    if mesh.backend == "gloo":
+        return "gloo+host" if dev.type == "cuda" else "gloo"
+    raise ValueError(f"unsupported process-group backend {mesh.backend!r}")
+
+
+def _as_bytes(x: torch.Tensor) -> torch.Tensor:
+    """``x`` as ``(rows, row_bytes)`` uint8: every backend carries bytes,
+    and splits along the first axis stay whole rows."""
+    rows = int(x.shape[0])
+    width = 1
+    for d in x.shape[1:]:
+        width *= int(d)
+    return x.contiguous().reshape(rows, width).view(torch.uint8)
+
+
+def _from_bytes(b: torch.Tensor, like: torch.Tensor, rows: int):
+    shape = (rows,) + tuple(like.shape[1:])
+    if b.numel() == 0:
+        return torch.empty(shape, dtype=like.dtype, device=b.device)
+    return b.view(like.dtype).reshape(shape)
+
+
+class Exchange:
+    """A collective in flight: ``wait()`` returns what arrived (on the
+    tensor's own device), ``is_completed()`` polls without blocking."""
+
+    def __init__(self, work, out: torch.Tensor, finish):
+        self._work = work
+        self._out = out
+        self._finish = finish
+
+    def is_completed(self) -> bool:
+        return self._work is None or bool(self._work.is_completed())
+
+    def then(self, fn) -> "Exchange":
+        """This exchange, with ``fn`` applied to what arrives: at once
+        when nothing is in flight."""
+        if self._work is None:
+            self._out = fn(self.wait())
+            return self
+        prev = self._finish
+        self._finish = fn if prev is None else (lambda o: fn(prev(o)))
+        return self
+
+    def wait(self):
+        if self._work is not None:
+            self._work.wait()
+            self._work = None
+        if self._finish is not None:
+            self._out, self._finish = self._finish(self._out), None
+        return self._out
+
+
+def _staged(x_bytes: torch.Tensor, out_shape) -> tuple:
+    """Pinned host copies for a gloo collective of CUDA bytes: the input
+    (copied before the collective reads it) and the output buffer."""
+    h_in = torch.empty(tuple(x_bytes.shape), dtype=torch.uint8,
+                       pin_memory=True)
+    h_in.copy_(x_bytes)
+    h_out = torch.empty(tuple(out_shape), dtype=torch.uint8,
+                        pin_memory=True)
+    return h_in, h_out
+
+
+def _collective(mesh, x: torch.Tensor, out_rows: int, issue, async_op):
+    """Run ``issue(out_bytes, in_bytes)`` over ``x``'s bytes on the
+    mesh's transport; the result has ``out_rows`` rows of ``x``'s row
+    shape and dtype, on ``x``'s device."""
+    way = transport(mesh, x.device)
+    b = _as_bytes(x)
+    out_shape = (int(out_rows), int(b.shape[1]))
+    if way == "gloo+host":
+        src, dst = _staged(b, out_shape)
+        dev = x.device
+
+        def finish(o):
+            return _from_bytes(o.to(dev, non_blocking=True), x, out_rows)
+    else:
+        src = b
+        dst = torch.empty(out_shape, dtype=torch.uint8, device=x.device)
+
+        def finish(o):
+            return _from_bytes(o, x, out_rows)
+    work = issue(dst, src)
+    ex = Exchange(work, dst, finish)
+    return ex if async_op else ex.wait()
+
+
+def all_to_all(x: torch.Tensor, mesh, *, async_op: bool = False,
+               send_counts=None, recv_counts=None):
+    """Bucket ``j`` of this rank's ``(m*C, ...)`` buffer goes to rank
+    ``j``; what arrives holds rank ``i``'s bucket for this rank at bucket
+    ``i`` (the reference's ``all_to_all(..., 0, 0, tiled=True)``). With
+    ``send_counts``/``recv_counts`` (rows per rank) the buckets are
+    ragged. Returns the received tensor, or an ``Exchange`` with
+    ``async_op=True``."""
+    import torch.distributed as dist
+    m = int(mesh.num_shards)
+    if send_counts is None:
+        if int(x.shape[0]) % m:
+            raise ValueError(f"{x.shape[0]} rows do not split into {m} "
+                             "equal buckets")
+        out_rows, splits = int(x.shape[0]), None
+    else:
+        send_counts = [int(c) for c in send_counts]
+        recv_counts = [int(c) for c in recv_counts]
+        if sum(send_counts) != int(x.shape[0]):
+            raise ValueError(f"send_counts {send_counts} do not sum to "
+                             f"{x.shape[0]} rows")
+        out_rows, splits = sum(recv_counts), (recv_counts, send_counts)
+
+    def issue(dst, src):
+        return dist.all_to_all_single(
+            dst, src, output_split_sizes=None if splits is None
+            else splits[0], input_split_sizes=None if splits is None
+            else splits[1], group=mesh.group, async_op=True)
+    return _collective(mesh, x, out_rows, issue, async_op)
+
+
+def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
+    """Every rank's ``x`` (same shape on all), stacked in rank order:
+    ``(m,) + x.shape``."""
+    import torch.distributed as dist
+    m = int(mesh.num_shards)
+    flat = x.reshape((1,) + tuple(x.shape))
+
+    def issue(dst, src):
+        return dist.all_gather(list(dst.chunk(m)), src, group=mesh.group,
+                               async_op=True)
+    return _collective(mesh, flat, m, issue, False)

@@ -89,8 +89,9 @@ def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], *,
         devs = {torch.device(d) for d in devices}
         if len(devs) > 1:
             raise NotImplementedError(
-                f"a mesh over {len(devs)} devices needs torch.distributed; "
-                "the port's training mesh is logical over one device")
+                f"a mesh over {len(devs)} devices needs torch.distributed "
+                "(DTensor/FSDP, ROADMAP A14c); the port's training mesh is "
+                "logical over one device")
         (device,) = devs
     return Mesh(tuple(int(n) for n in axis_sizes), tuple(axis_names),
                 resolve_device(device))

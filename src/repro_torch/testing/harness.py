@@ -444,7 +444,7 @@ def default_sharded_cases(seed: int = 0, *, n_rows: int = 257,
 
 def check_sharded_parity(cases: Sequence | None = None, *,
                          mesh_sizes: Sequence[int] = (1, 2, 4, 8),
-                         seed: int = 0, rtol: float = 1e-5,
+                         mesh=None, seed: int = 0, rtol: float = 1e-5,
                          atol: float = 1e-6, device="cuda"):
     """Sharded-engine parity: every mesh size vs the single-device NumPy
     oracle.
@@ -456,13 +456,23 @@ def check_sharded_parity(cases: Sequence | None = None, *,
     combine is order-independent mod 2^32) and allclose on floats, whose
     reduction order the engine legally changes (§3.1).
 
-    The port's shards are logical (``distributed.mesh``), so every mesh
-    size runs, whatever the device count. Returns ``(checked,
+    The port's logical shards (``distributed.mesh.Mesh``) run every mesh
+    size, whatever the device count. ``mesh``, a ``ProcessMesh``, replaces
+    ``mesh_sizes`` and is checked SPMD, on every rank at once: each rank
+    passes its table slice and the whole stream, holds its own block of
+    lanes (gathers) or its slice (RMWs) against the oracle, and the
+    verdict is all-reduced — a mismatch on any rank raises
+    ``ParityError`` on every rank. Returns ``(checked,
     ran_mesh_sizes)``.
     """
-    from repro_torch.distributed import ShardedEngine
+    from repro_torch.distributed import ProcessMesh, ShardedEngine
     if cases is None:
         cases = default_sharded_cases(seed)
+    if mesh is not None:
+        if not isinstance(mesh, ProcessMesh):
+            raise TypeError(f"mesh= takes a ProcessMesh (logical meshes "
+                            f"go in mesh_sizes), got {type(mesh).__name__}")
+        return _check_process_parity(cases, mesh, rtol=rtol, atol=atol)
     checked, ran = 0, []
     for m in mesh_sizes:
         eng = ShardedEngine(mesh=int(m), device=device)
@@ -487,6 +497,47 @@ def check_sharded_parity(cases: Sequence | None = None, *,
                 raise ValueError(f"unknown case kind {case[0]!r}")
             checked += 1
     return checked, ran
+
+
+def _check_process_parity(cases, mesh, *, rtol: float, atol: float):
+    """``check_sharded_parity`` on a ``ProcessMesh``: this rank's share of
+    every case against the oracle, then one all-reduced verdict."""
+    from repro_torch.distributed import ShardedEngine, all_gather
+    eng = ShardedEngine(mesh)
+    m, r = eng.num_shards, eng.rank
+    failure = None
+    for k, case in enumerate(cases):
+        tn = np.asarray(case[1])
+        lo, hi = eng.rank_rows(tn.shape[0])
+        idx = np.asarray(case[2])
+        if case[0] == "gather":
+            got = eng.sharded_gather(tn[lo:hi], idx, n_rows=tn.shape[0])
+            a, b = eng.rank_lanes(idx.shape[0])
+            want = tn[np.clip(idx[a:b], 0, tn.shape[0] - 1)]
+            what, tol = f"[process mesh={m} rank {r} case{k} gather]", {}
+        elif case[0] == "rmw":
+            vals, op = np.asarray(case[3]), case[4]
+            got = eng.sharded_rmw(tn[lo:hi], idx, vals, op=op,
+                                  n_rows=tn.shape[0])
+            want = _np_rmw(tn, idx, vals, op)[lo:hi]
+            what = f"[process mesh={m} rank {r} case{k} rmw:{op}]"
+            tol = dict(rtol=rtol, atol=atol)
+        else:
+            raise ValueError(f"unknown case kind {case[0]!r}")
+        if failure is None:
+            try:
+                _assert_match(f"{what} vs NumPy oracle", got, want,
+                              **{"rtol": 0, "atol": 0, **tol})
+            except ParityError as e:
+                failure = str(e)
+    ok = torch.tensor([failure is None], dtype=torch.int32,
+                      device=eng.device)
+    verdict = all_gather(ok, mesh).reshape(-1).tolist()
+    if not all(verdict):
+        bad = [i for i, v in enumerate(verdict) if not v]
+        raise ParityError(f"process mesh of {m}: rank(s) {bad} diverged"
+                          + (f"; here: {failure}" if failure else ""))
+    return len(cases), [m]
 
 
 def check_app_parity(app_names: Sequence[str] | None = None, *,

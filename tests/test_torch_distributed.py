@@ -206,13 +206,12 @@ def test_mesh_helpers():
     for n, m in ((257, 8), (10, 8), (64, 3), (5, 1)):
         assert shard_row_ranges(n, m) == rmesh.shard_row_ranges(n, m)
     mesh = as_mesh(8, device="cpu")
-    assert mesh.num_shards == 8 and mesh.devices == (torch.device("cpu"),)
-    assert mesh.device_of(5) == torch.device("cpu")
+    assert mesh.num_shards == 8 and mesh.device == torch.device("cpu")
     assert as_mesh(None, device="cpu").num_shards == 1
     assert as_mesh(mesh) is mesh
     assert device_mesh(3, device="cpu").shape == {"shards": 3}
     with pytest.raises(ValueError):
-        Mesh(0, (torch.device("cpu"),))
+        Mesh(0, torch.device("cpu"))
     with pytest.raises(TypeError):
         as_mesh("eight")
     if not torch.cuda.is_available():
@@ -273,14 +272,61 @@ def test_sharded_engine_matches_oracle(m):
 
 @pytest.mark.parametrize("m", MESHES)
 def test_sharded_engine_kernel_path_and_device_entries(m):
-    """``use_kernel=True`` (the kernels' plain versions on the CPU) and a
-    mesh over two device entries (each entry's owners served apart)."""
+    """``use_kernel=True`` (the kernels' plain versions on the CPU), by
+    shard count and by an explicit one-device ``Mesh``."""
     cases = harness.default_sharded_cases(2) + _extra_cases(2)
     _check_cases(ShardedEngine(mesh=m, use_kernel=True, device="cpu"),
                  cases)
-    two = Mesh(m, (torch.device("cpu"), torch.device("cpu")))
-    _check_cases(ShardedEngine(mesh=two, use_kernel=True, device="cpu"),
+    one = Mesh(m, torch.device("cpu"))
+    _check_cases(ShardedEngine(mesh=one, use_kernel=True, device="cpu"),
                  cases)
+
+
+@pytest.mark.parametrize("m", MESHES)
+def test_logical_mesh_holds_one_copy_of_the_table(m, monkeypatch):
+    """A logical mesh lies on one device: every shard of
+    ``device_mesh(m)`` is on it, and each call hands the owners' one
+    bulk op the caller's table itself, never a copy per device."""
+    from repro_torch.distributed import engine as dengine
+    mesh = device_mesh(m, device="cpu")
+    assert mesh.device == torch.device("cpu")
+    assert not hasattr(mesh, "devices") and not hasattr(mesh, "device_of")
+    eng = ShardedEngine(mesh=mesh, use_kernel=True, device="cpu")
+    seen = []
+    for name in ("bulk_gather", "bulk_rmw"):
+        real = getattr(dengine.bulk_ops, name)
+
+        def spy(table, *a, _real=real, _name=name, **k):
+            seen.append((_name, table))
+            return _real(table, *a, **k)
+        monkeypatch.setattr(dengine.bulk_ops, name, spy)
+    table = torch.arange(257 * 4, dtype=torch.float32).reshape(257, 4)
+    idx = torch.from_numpy(np.random.default_rng(m).integers(
+        0, 257, size=300).astype(np.int32))
+    eng.sharded_gather(table, idx)
+    eng.sharded_rmw(table, idx, torch.ones(300, 4), op="ADD")
+    assert [n for n, _ in seen] == ["bulk_gather", "bulk_rmw"]
+    assert all(t is table for _, t in seen)
+
+
+@pytest.mark.parametrize("codec", ["raw", "bitmap", "delta"])
+def test_logical_route_lands_in_the_start_stage(codec):
+    """On a logical mesh the exchange is done at once, so the start stage
+    also decodes and lands the indices, counts them and places each lane:
+    the finish stage is left the owners' bulk op and the unpacking."""
+    eng = ShardedEngine(mesh=4, device="cpu")
+    rng = np.random.default_rng(3)
+    table = torch.from_numpy(rng.normal(size=(257, 2)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 257, 300).astype(np.int32))
+    fl = eng.gather_start(table, idx, codec=codec)
+    assert {"cat_idx", "n_recv", "n_uniq", "lane_pos"} <= set(fl.route)
+    assert fl.wire[0].is_completed()
+    assert torch.equal(eng.gather_finish(table, fl), table[idx.long()])
+    fl = eng.rmw_start(table, idx, torch.ones(300, 2), op="ADD",
+                       codec=codec)
+    assert {"cat_idx", "n_recv", "n_uniq", "src"} <= set(fl.route)
+    want = table.clone().index_add_(0, idx.long(), torch.ones(300, 2))
+    torch.testing.assert_close(eng.rmw_finish(table, fl), want)
 
 
 @pytest.mark.parametrize("placement,codec", [

@@ -63,7 +63,7 @@ def test_port_and_smoke_import_without_jax_or_reference():
                  "models.rwkv", "models.rwkv_lm", "models.encdec", "testing.oracle", "testing.conformance",
                  "testing.harness", "testing.streams", "analysis.program",
                  "distributed", "distributed.mesh", "distributed.exchange",
-                 "distributed.engine", "core.tree", "optim.adamw",
+                 "distributed.engine", "distributed.spawn", "core.tree", "optim.adamw",
                  "optim.compress", "optim.schedules", "data.batches",
                  "data.pipeline", "train.trainer", "train.checkpoint",
                  "train.elastic", "launch.mesh", "launch.train",
