@@ -178,6 +178,26 @@ the script exits non-zero without its result line:
               and each rank's peak memory. A rank that raises, dies or
               hangs (collectives time out after 120 s, a group after
               300 s) fails the phase.
+ 14. service  the Scheduler, AccessService and the apps over a
+              ``ProcessMesh``, SPMD, in phase 13's groups: every rank
+              lowers the same window (one agreement per window), submits
+              its slices of the row-sharded tables and runs B1/B2 on them.
+              (a) Phase 6's window (integer-valued G and values), A and G
+              row-sharded, the gather programs over the whole A split
+              across the ranks: bit for bit on every rank (gathers whole
+              against A[idx], G's slice against ``index_add_`` on the
+              whole G, programs against A[B]), B1 2 and B2 1 per rank (the
+              sharded gather node, the batched group's ILD; the sharded
+              RMW node). (b) Phase 8's six configurations pipelined through
+              ``AccessService(mesh=ProcessMesh, use_kernel=True)``: each
+              rank's result has the digest of the host oracle's (bit for
+              bit), and per rank B1 once per sharded gather node and B2
+              once per sharded RMW node of the 2-D apps in which the rank
+              serves rows (``ShardStats.received``), the 1-D apps none. The gloo groups keep every size and cut depth
+              (``PS_GLOO_CUTS``, printed as ``reduced`` lines). Per group:
+              the slowest rank's warm times beside phase 8's pipelined and
+              phase 11's 4-shard times, collectives and agreements per
+              window, B1/B2 per rank, peak memory per rank.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -200,8 +220,9 @@ app's checked pipelined run in phase 8, ``traffic_launches`` phase 9b's
 replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
 ``sharded_launches`` phase 11's checked calls per mesh size,
 ``train_launches`` phase 12, ``process_mesh_launches`` phase 13's
-checked calls per group, summed over its ranks) and {"ok":
-true, "device": {...}}.
+checked calls per group, summed over its ranks,
+``process_service_launches`` phase 14's checked window and apps per
+group, one count per rank) and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1298,11 +1319,11 @@ class AppCase:
         self.stats = {} if stats is None else stats
 
 
-def app_cases(seed: int):
-    """Phase 8's six configurations at ``APP_SIZES``."""
+def app_cases(seed: int, sizes: dict | None = None):
+    """Phase 8's six configurations at ``APP_SIZES`` (or ``sizes``)."""
     import dataclasses
     from repro_torch.apps import bfs, embedding_bag, hashjoin, kv_serve, spmv
-    s = APP_SIZES
+    s = APP_SIZES if sizes is None else sizes
     cases = []
     for name in ("spmv_cg", "spmv_block"):
         c = s[name]
@@ -1344,6 +1365,31 @@ def app_cases(seed: int):
                                         stats_out=stats, **kw),
         lambda prob: kv_serve.reference(prob, k["n_steps"]), stats))
     return cases
+
+
+#: phase 8's pipelined warm median (ms) and its oracle's digest per app,
+#: and phase 11's one timed 4-shard run (ms): what phase 14 stands beside
+APP_RESULTS: dict = {}
+SHARD_APP_MS: dict = {}
+
+
+def result_digest(x) -> str:
+    """SHA-256 of an app's result (arrays by dtype, shape and bytes;
+    tuples element by element; ints by value): equal digests are bit for
+    bit equal results, so a rank's result is checked without shipping it
+    to the parent."""
+    import hashlib
+    import numpy as np
+    h = hashlib.sha256()
+    if isinstance(x, tuple):
+        for v in x:
+            h.update(result_digest(v).encode())
+    elif isinstance(x, np.ndarray):
+        h.update(f"{x.dtype.str}{x.shape}".encode())
+        h.update(np.ascontiguousarray(x).tobytes())
+    else:
+        h.update(f"{type(x).__name__}:{x!r}".encode())
+    return h.hexdigest()
 
 
 def bitwise_equal(got, want) -> bool:
@@ -1445,6 +1491,7 @@ def phase_apps(dev, seed: int):
     from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
     from repro_torch.serve import AccessService
     app_launches = {"row_table_gather": {}, "row_table_rmw": {}}
+    APP_RESULTS.clear()
     for case in app_cases(seed):
         name = case.name
         source, cut = APP_SOURCES[name]
@@ -1501,6 +1548,8 @@ def phase_apps(dev, seed: int):
                 f"{statistics.median(ms):10.3f} ms, runs "
                 f"{' '.join(f'{t:.3f}' for t in ms)}; first "
                 f"{firsts[path]:.3f} ms")
+        APP_RESULTS[name] = {"ms": statistics.median(times["pipelined"]),
+                             "digest": result_digest(want)}
         profile_app(dev, name, paths["pipelined"])
         del prob, want, svc, paths
         if dev.type == "cuda":
@@ -2487,6 +2536,7 @@ def phase_sharded(dev, seed: int):
             raise AssertionError(f"app {case.name} over mesh 4: not bit "
                                  "for bit the host oracle")
         ex = svc.telemetry.exchange_summary()
+        SHARD_APP_MS[case.name] = ms
         log(f"sharded app {case.name} (mesh 4): bit for bit the host "
             f"oracle in {ms:.3f} ms; launches B1 {gk.launches - g0} B2 "
             f"{sk.launches - s0}; exchange {ex}")
@@ -2969,6 +3019,307 @@ def phase_process_mesh(dev, seed: int, logical_ms: dict, groups=PM_GROUPS):
     return out
 
 
+# --- phase 14 --------------------------------------------------------------
+
+PS_RUNS = {"nccl": 2, "gloo": 1}   # warm timed runs after the checked one
+# the gloo groups (host-staged collectives, ~0.5-1.2 s a sharded call)
+# keep every size and cut depth only; the nccl group runs the full depth
+# (hashjoin's depth is its probe windows: 2^22 probes are 64 windows of
+# 4 tiles, each all-gathering its programs' whole-stream OUT regions)
+PS_GLOO_CUTS = {"spmv_cg": {"iters": 1}, "spmv_block": {"iters": 1},
+                "bfs": {"levels": 2}, "hashjoin": {"n_probe": 2 ** 20},
+                "embedding_bag": {"n_steps": 1}, "kv_serve": {"n_steps": 2}}
+# the apps whose tables are 2-D (B1 per sharded gather node, B2 per
+# sharded RMW node); the 1-D apps launch neither
+PS_2D = ("spmv_block", "embedding_bag", "kv_serve")
+
+
+def ps_sizes(cut: bool) -> dict:
+    """Phase 8's sizes, with the gloo groups' cuts of depth."""
+    sizes = {k: dict(v) for k, v in APP_SIZES.items()}
+    if cut:
+        for name, c in PS_GLOO_CUTS.items():
+            sizes[name].update(c)
+    return sizes
+
+
+def ps_window(rank, dev, mesh, seed, runs):
+    """Phase 6's multi-tenant window over the process mesh: A and G
+    row-sharded (each rank submits its slices), the gather programs over
+    the whole A every rank holds (one batched group, split across the
+    ranks). Checked bit for bit on this rank (integer-valued G and
+    values): every gather whole against A[idx], G's slice against
+    index_add_ on the whole G, each program's out against A[B]; B1/B2
+    launches per rank. Then the warm window time."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import AccessService
+    A = make_data(dev, LOOKUPS, seed)[0]
+    data = window_data(dev, seed, integer_values=True)
+    win = Window(dev, A, data)
+    svc = AccessService(mesh=mesh, use_kernel=True, auto_flush=0,
+                        tile_size=TILE)
+    sched, eng = svc.scheduler, svc.scheduler.engine
+    lo, hi = eng.rank_rows(ROWS)
+    A_s, G_s = A[lo:hi], data["G"][lo:hi].clone()
+
+    def submit():
+        d, out = data, {"program": [], "gather": [], "rmw": []}
+        for t in range(TENANTS):
+            name = f"core{t}"
+            out["program"].append(sched.submit(win.prog, win.env(t),
+                                               win.regs, tenant=name))
+            out["gather"].append(sched.submit_gather(
+                A_s, d["gather"][t], tenant=name, n_rows=ROWS))
+            out["rmw"].append(sched.submit_rmw(
+                G_s, d["rmw"][t], d["vals"][t], op="ADD", tenant=name,
+                n_rows=ROWS))
+        return out
+
+    tickets = submit()
+    gk.launches = 0
+    sk.launches = 0
+    c0, a0 = eng.collectives, sched.stats["agreements"]
+    report = sched.flush()
+    sync()
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    collectives = eng.collectives - c0
+    agreements = sched.stats["agreements"] - a0
+    results = redeem(sched, tickets)
+    kinds = sorted((n.kind, getattr(getattr(n, "inner", None), "kind", None))
+                   for n in report.plan.roots)
+    if kinds != [("program_group", None), ("sharded", "gather"),
+                 ("sharded", "rmw")] or not report.groups[0].vmapped:
+        raise AssertionError(f"rank {rank}: unexpected window plan {kinds}")
+    want = {"row_table_gather": 2, "row_table_rmw": 1}
+    if launches != want:
+        raise AssertionError(f"rank {rank} window launches {launches}, "
+                             f"want {want} (the sharded gather and the "
+                             "group's batched ILD; the sharded RMW)")
+    for t, got in enumerate(results["gather"]):
+        assert_match(f"rank {rank} window gather core{t} vs A[idx]", got,
+                     A[data["gather"][t].long()])
+    want_g = data["G"].clone().index_add_(
+        0, torch.cat(data["rmw"]).long(), torch.cat(data["vals"]))[lo:hi]
+    for t, got in enumerate(results["rmw"]):
+        assert_match(f"rank {rank} window rmw core{t} slice vs index_add_",
+                     got, want_g)
+    for t, (env, _) in enumerate(results["program"]):
+        assert_match(f"rank {rank} window program core{t} out vs A[B]",
+                     env["out"], A[data["prog_B"][t].long()])
+    del results, want_g
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        tickets = submit()
+        sched.flush()
+        redeem(sched, tickets)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    del A, data, win, svc, sched, eng, A_s, G_s
+    empty_cache(dev)
+    return {"launches": launches, "collectives": collectives,
+            "agreements": agreements, "ms": times,
+            "median": statistics.median(times)}
+
+
+def ps_app(rank, dev, mesh, case, runs):
+    """One app pipelined through ``AccessService(mesh=ProcessMesh,
+    use_kernel=True)``: the checked run's result digest, its B1/B2
+    launches beside the sharded nodes of the windows it flushed (all of
+    them, and those in which this rank serves rows: a rank that owns
+    none of a node's rows has nothing to gather or update, and launches
+    nothing for it), its windows, collectives and agreements; then the
+    warm times."""
+    import statistics
+    import torch.distributed as dist
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import AccessService
+    prob = case.make()
+    svc = AccessService(mesh=mesh, use_kernel=True, auto_flush=0,
+                        tile_size=TILE)
+    sched, eng = svc.scheduler, svc.scheduler.engine
+    nodes = {"gather": 0, "rmw": 0}
+    served = {"gather": 0, "rmw": 0}
+    flush_async = sched.flush_async
+
+    def counted(**kw):
+        handle = flush_async(**kw)
+        rep = handle.report
+        for n in rep.plan.roots:
+            if n.kind != "sharded":
+                continue
+            g = n.inner
+            st = rep.shard_stats.get(g.table_id if g.kind == "gather"
+                                     else ("rmw", g.table_id, g.op))
+            nodes[g.kind] += 1
+            served[g.kind] += st is not None and \
+                int(st.received[eng.rank]) > 0
+        return handle
+    sched.flush_async = counted
+    gk.launches = 0
+    sk.launches = 0
+    c0 = eng.collectives
+    dist.barrier()
+    got, first = timed(lambda: case.run(prob, mode="pipelined",
+                                        service=svc))
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    sched.flush_async = flush_async    # the warm runs read no stats
+    out = {"digest": result_digest(got), "launches": launches,
+           "nodes": nodes, "served": served,
+           "windows": sched.stats["flushes"],
+           "collectives": eng.collectives - c0,
+           "agreements": sched.stats["agreements"],
+           "agreement_ms": 1e3 * sched.stats["agreement_s"], "first": first}
+    del got
+    times = []
+    for _ in range(runs):
+        dist.barrier()
+        times.append(timed(lambda: case.run(prob, mode="pipelined",
+                                            service=svc))[1])
+    out.update(ms=times, median=statistics.median(times) if times else
+               first)
+    del prob, svc
+    empty_cache(dev)
+    return out
+
+
+def ps_rank(rank, world, backend, device, seed, cut):
+    """One rank of phase 14 (spawned): the window, then the six app
+    configurations (with the gloo groups' cuts when ``cut``)."""
+    import torch
+    from repro_torch.distributed import process_mesh
+    mesh = process_mesh(device=device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)     # a gloo rank's context, before stats
+    runs = PS_RUNS[backend]
+    t0 = time.perf_counter()
+    empty_cache(dev)
+    reset_peak(dev)
+    out = {"rank": rank, "device": str(dev),
+           "window": ps_window(rank, dev, mesh, seed, runs), "apps": {}}
+    for case in app_cases(seed, ps_sizes(cut)):
+        out["apps"][case.name] = ps_app(rank, dev, mesh, case, runs)
+    out["peak_gib"] = peak_gib(dev)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_process_service(dev, seed: int, groups=PM_GROUPS):
+    """The Scheduler, AccessService and the apps over a ProcessMesh, SPMD:
+    per group (phase 13's: nccl over every card, gloo worlds 2 and 4 on
+    card 0) the multi-tenant window of phase 6 (bit for bit on every rank,
+    B1 2 and B2 1 per rank: the sharded gather, the group's batched ILD,
+    the sharded RMW) and the six app configurations of phase 8 pipelined
+    through ``AccessService(mesh=ProcessMesh, use_kernel=True)`` (each
+    rank's result digest that of the host oracle; per rank B1 once per
+    sharded gather node and B2 once per sharded RMW node of a 2-D app in
+    which the rank serves rows, none for the 1-D apps). The gloo groups cut depth (``PS_GLOO_CUTS``).
+    Prints per group the slowest rank's warm time beside phase 8's
+    pipelined and phase 11's 4-shard times, peak memory per rank,
+    collectives and agreements per window, B1/B2 per rank. Returns each
+    kernel's launches per group and rank (window and apps summed)."""
+    import tempfile
+    import torch
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    oracles = {}
+    for cut in sorted({backend == "gloo" for backend, _, _ in groups}):
+        for case in app_cases(seed, ps_sizes(cut)):
+            if not cut and case.name in APP_RESULTS:
+                oracles[(cut, case.name)] = APP_RESULTS[case.name]["digest"]
+                continue
+            t0 = time.perf_counter()
+            oracles[(cut, case.name)] = result_digest(case.oracle(
+                case.make()))
+            log(f"phase 14 oracle {case.name}{' (cut)' if cut else ''}: "
+                f"{time.perf_counter() - t0:.1f} s")
+    for name, c in PS_GLOO_CUTS.items():
+        log(f"reduced phase 14 gloo groups {name}: "
+            + ", ".join(f"{k} {APP_SIZES[name][k]} -> {v}"
+                        for k, v in c.items()))
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    for backend, world, device in groups:
+        world = torch.cuda.device_count() if world is None else world
+        cut = backend == "gloo"
+        name = f"{backend}-{world}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ranks = run_ranks(ps_rank, world,
+                              args=(backend, device, seed, cut),
+                              backend=backend,
+                              init_method=f"file://{tmp}/store",
+                              timeout=PM_COLLECTIVE_S,
+                              join_timeout=PM_JOIN_S)
+        wall = time.perf_counter() - t0
+        for k in out:
+            out[k][name] = [r["window"]["launches"][k] + sum(
+                a["launches"][k] for a in r["apps"].values())
+                for r in ranks]
+        w = [r["window"] for r in ranks]
+        log(f"phase 14 {name} window: bit for bit on every rank; B1/B2 "
+            f"per rank {[tuple(x['launches'].values()) for x in w]}; "
+            f"collectives {w[0]['collectives']}, agreements "
+            f"{w[0]['agreements']}; warm (slowest rank) "
+            + " ".join(f"{max(x['ms'][i] for x in w):.3f}"
+                       for i in range(len(w[0]['ms'])))
+            + f" ms; phase 6 (one device, float values) in this run's log")
+        for app in ranks[0]["apps"]:
+            rs = [r["apps"][app] for r in ranks]
+            bad = [r for r, a in enumerate(rs)
+                   if a["digest"] != oracles[(cut, app)]]
+            if bad:
+                raise AssertionError(f"phase 14 {name} {app}: rank(s) {bad} "
+                                     "not bit for bit the host oracle")
+            for r, a in enumerate(rs):
+                want = ({"row_table_gather": a["served"]["gather"],
+                         "row_table_rmw": a["served"]["rmw"]}
+                        if app in PS_2D else
+                        {"row_table_gather": 0, "row_table_rmw": 0})
+                if a["launches"] != want:
+                    raise AssertionError(
+                        f"phase 14 {name} {app} rank {r}: launches "
+                        f"{a['launches']}, the plans' sharded nodes in "
+                        f"which it serves rows call for {want} (of "
+                        f"{a['nodes']})")
+            slowest = max(a["median"] for a in rs)
+            p8 = APP_RESULTS.get(app, {}).get("ms")
+            p11 = SHARD_APP_MS.get(app)
+            log(f"phase 14 {name} {app:13s} warm (slowest rank) "
+                f"{slowest:10.3f} ms"
+                f"{' (cut depth)' if cut and app in PS_GLOO_CUTS else ''}; "
+                f"first {max(a['first'] for a in rs):.3f}; phase 8 "
+                f"pipelined {'%.3f ms' % p8 if p8 else 'not run'}; phase "
+                f"11 4-shard {'%.3f ms' % p11 if p11 else 'not run'}; "
+                f"B1/B2 per rank "
+                f"{[tuple(a['launches'].values()) for a in rs]} (sharded "
+                f"gather/RMW nodes {tuple(rs[0]['nodes'].values())}); "
+                f"{rs[0]['windows']} windows, "
+                f"{rs[0]['collectives'] / max(rs[0]['windows'], 1):.1f} "
+                f"collectives and "
+                f"{rs[0]['agreements'] / max(rs[0]['windows'], 1):.1f} "
+                f"agreements per window, agreement host ms per window "
+                f"(max over ranks) "
+                f"{max(a['agreement_ms'] / max(a['windows'], 1) for a in rs):.3f}")
+        log(f"phase 14 {name}: every app bit for bit its oracle on every "
+            f"rank; peak per rank {[round(r['peak_gib'], 2) for r in ranks]}"
+            f" GiB allocated; devices {sorted({r['device'] for r in ranks})};"
+            f" ranks {[round(r['seconds'], 1) for r in ranks]} s; "
+            f"{wall:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3006,6 +3357,7 @@ def main(argv=None) -> int:
     sharded_launches, logical_ms = phase_sharded(dev, args.seed)
     train_launches = phase_train(dev, args.seed)
     process_launches = phase_process_mesh(dev, args.seed, logical_ms)
+    service_launches = phase_process_service(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -3014,6 +3366,7 @@ def main(argv=None) -> int:
         row["sharded_launches"] = sharded_launches[row["name"]]
         row["train_launches"] = train_launches[row["name"]]
         row["process_mesh_launches"] = process_launches[row["name"]]
+        row["process_service_launches"] = service_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

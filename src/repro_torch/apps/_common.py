@@ -1,6 +1,15 @@
 """What every app's ``run`` shares: the placement of a run (its mode, the
-service the scheduler modes submit to, the device), and the per-tenant
-blocks of a multi-tenant batch (embedding bags, KV sequences)."""
+service the scheduler modes submit to, the device), the row-sharded
+tables over a process mesh, and the per-tenant blocks of a multi-tenant
+batch (embedding bags, KV sequences).
+
+Over a ``distributed.ProcessMesh`` (``mesh=`` or a service built on one)
+each rank runs the app, SPMD: the app's state stays whole on every rank,
+each table the engine reads or updates is submitted as the rank's slice
+(``rank_slice``), a gather resolves to its whole result, and an update's
+slice is put back together whole (``whole``), so ``run`` returns on every
+rank what it returns on one device.
+"""
 from __future__ import annotations
 
 from typing import Dict, List, Sequence
@@ -28,6 +37,29 @@ def placement(mode: str, service, mesh, device, **service_kw):
         service = AccessService(auto_flush=0, device=device, mesh=mesh,
                                 **service_kw)
     return service, service.scheduler.engine.device
+
+
+def _process_engine(service):
+    eng = service.scheduler.engine
+    return eng if getattr(eng, "process", False) else None
+
+
+def rank_slice(service, table: torch.Tensor):
+    """``(table to submit, submit kwargs)`` for a row-sharded table: over
+    a process mesh this rank's rows ``rank_rows`` and ``n_rows``, else the
+    table itself and no kwargs."""
+    eng = _process_engine(service)
+    if eng is None:
+        return table, {}
+    lo, hi = eng.rank_rows(table.shape[0])
+    return table[lo:hi], {"n_rows": int(table.shape[0])}
+
+
+def whole(service, out: torch.Tensor, n_rows: int) -> torch.Tensor:
+    """An update's result (a rank's slice over a process mesh) as the
+    whole table, on every rank; ``out`` itself elsewhere."""
+    eng = _process_engine(service)
+    return out if eng is None else eng.whole(out, n_rows)
 
 
 def by_tenant(tenants: Sequence[str]) -> Dict[str, List[int]]:

@@ -121,22 +121,26 @@ def run(g: Graph, src: int, *, levels: int, mode: str = "pipelined",
     sched = service.scheduler
     aux = {}   # k -> validity mask of that level's fused edge stream
 
+    adj_tab, adj_kw = _common.rank_slice(service, adj)
+
     def access(loop, k, state):
         _, frontier = state
         inner, valid = expand(frontier)
         aux[k] = valid
-        return loop.submit_gather(adj, inner)
+        return loop.submit_gather(adj_tab, inner, **adj_kw)
 
     def compute(k, state, nbrs):
         dist, _ = state
         valid = aux.pop(k)
-        t = sched.submit_rmw(dist, nbrs, level_values(k), op="MIN",
-                             cond=valid)
+        tab, kw = _common.rank_slice(service, dist)
+        t = sched.submit_rmw(tab, nbrs, level_values(k), op="MIN",
+                             cond=valid, **kw)
         # second window of the level: the RMW. inflight_ok — this window
         # deliberately overlaps the loop's already-dispatched access
         # window (the in-flight guard exists for accidental overlap)
         sched.flush_async(inflight_ok=True)
-        dist = sched.result(t)    # queued on the device, never read here
+        # queued on the device, never read here
+        dist = _common.whole(service, sched.result(t), g.n)
         return dist, dist == (k + 1)
 
     state = (dist0, frontier0)

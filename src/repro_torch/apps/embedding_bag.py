@@ -156,8 +156,8 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
       "pipelined"  ``DecoupledLoop.run``: step t+1's lookup window is
                    queued while step t's bag reduction may still run
     service: an ``AccessService`` to share (default: a private one on
-    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh``
-    (a ``ShardedEngine``-backed private service).
+    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh`` /
+    ``ProcessMesh`` (a ``ShardedEngine``-backed private service).
 
     Raises ValueError on an unknown ``mode``.
     """
@@ -206,8 +206,10 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
     sched = service.scheduler
 
     def access(loop, t, table):
+        tab, kw = _common.rank_slice(service, table)
         return {tname: loop.submit_gather(
-                    table, np.asarray(prob.tokens[t][bags]), tenant=tname)
+                    tab, np.asarray(prob.tokens[t][bags]), tenant=tname,
+                    **kw)
                 for tname, bags in by_tenant.items()}
 
     def compute(t, table, results):
@@ -217,15 +219,17 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
             per_out[tname] = bag_out(t, tname, rows)
         outs[t] = _common.collate(by_tenant, per_out)
         g = torch.remainder(outs[t], _GMOD)
-        ts = [sched.submit_rmw(table, tok, grads, op="ADD", cond=cond,
-                               tenant=tname)
+        tab, kw = _common.rank_slice(service, table)
+        ts = [sched.submit_rmw(tab, tok, grads, op="ADD", cond=cond,
+                               tenant=tname, **kw)
               for tname, (tok, grads, cond) in push_streams(t, g).items()]
         # the push is the step's second window (the BFS/kv_serve shape);
         # every RMW ticket on the table resolves to its end-of-window
         # state. All are redeemed: a long-lived service would otherwise
         # keep each step's table alive through the others.
         sched.flush_async(inflight_ok=True)
-        return [sched.result(tk) for tk in ts][0]
+        return _common.whole(service, [sched.result(tk) for tk in ts][0],
+                             vocab)
 
     table = torch.as_tensor(prob.table, device=dev)
     if mode == "sequential":

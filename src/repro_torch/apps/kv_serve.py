@@ -287,8 +287,10 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
       "pipelined"  ``DecoupledLoop.run``: step t+1's history gather is
                    queued while step t's scoring may still run
     service: an ``AccessService`` to share (default: a private one on
-    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh``
-    — the pool gather and the append RMW then span a ``ShardedEngine``.
+    ``device``, ``None`` = CUDA); mesh: optional shard count / ``Mesh`` /
+    ``ProcessMesh`` — the pool gather and the append RMW then span a
+    ``ShardedEngine`` (over a process mesh each rank submits its slice of
+    the whole pool it holds, re-cut after every growth).
     stats_out: optional dict, filled with {"growths", "final_pages",
     "t_cap"} — how often the pool grew mid-flight (plan-cache churn).
 
@@ -364,22 +366,31 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
 
     sched = service.scheduler
 
+    def append(pool, per_tenant, flush):
+        """One fused-RMW window of ``per_tenant`` (dests, vals) appends
+        into ``pool`` (over a process mesh, the rank's slice of it); every
+        ticket is redeemed (one pool): a long-lived service would
+        otherwise keep each window's pool alive through the others."""
+        tab, kw = _common.rank_slice(service, pool)
+        tickets = [sched.submit_rmw(tab, tensor(dests), vals, op="ADD",
+                                    tenant=tname, **kw)
+                   for tname, (dests, vals) in per_tenant.items()]
+        flush(inflight_ok=True)
+        return _common.whole(service, [sched.result(tk)
+                                       for tk in tickets][0], len(pool))
+
     # prefill through the scheduler: one fused-RMW window on the zero pool
-    tickets = [sched.submit_rmw(pool, tensor(dests), tensor(vals),
-                                op="ADD", tenant=tname)
-               for tname, (dests, vals) in streams.items()]
-    sched.flush(inflight_ok=True)
-    # every ticket is redeemed (one pool): a long-lived service would
-    # otherwise keep each window's pool alive through the others
-    pool = [sched.result(tk) for tk in tickets][0]
+    pool = append(pool, {t: (d, tensor(v)) for t, (d, v) in streams.items()},
+                  sched.flush)
 
     aux: Dict[int, dict] = {}   # step -> per-tenant masks (host-built)
 
     def access(loop, t, pool):
         masks, tix = {}, {}
+        tab, kw = _common.rank_slice(service, pool)
         for tname in by_tenant:
             idx, masks[tname] = history(tname)
-            tix[tname] = loop.submit_gather(pool, idx, tenant=tname)
+            tix[tname] = loop.submit_gather(tab, idx, tenant=tname, **kw)
         aux[t] = masks
         return tix
 
@@ -391,15 +402,12 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
             per_tenant_out[tname] = attend(t, tname, hist, masks[tname])
         outs[t] = _common.collate(by_tenant, per_tenant_out)
         pool = grown(pool, range(prob.n_seqs))
-        ts = [sched.submit_rmw(pool, tensor(dests), vals, op="ADD",
-                               tenant=tname)
-              for tname, (dests, vals) in append_streams(t).items()]
         # second window of the step: the appends. inflight_ok — this
         # window deliberately overlaps the loop's already-dispatched
-        # access window (exactly the BFS pattern)
-        sched.flush_async(inflight_ok=True)
-        # the end-of-window pool, still queued
-        return [sched.result(tk) for tk in ts][0]
+        # access window (exactly the BFS pattern); the end-of-window pool
+        # comes back still queued. A pool grown here is sliced anew by
+        # the next submission (its ceil-div ranges move with its rows).
+        return append(pool, append_streams(t), sched.flush_async)
 
     if mode == "sequential":
         run_sequential(service, pool, n_steps, access, compute)

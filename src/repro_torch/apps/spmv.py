@@ -112,8 +112,9 @@ def run(prob: SpmvProblem, n_iters: int, *, mode: str = "pipelined",
                    iteration k's reduction may still run on the device
     service: an ``AccessService`` to share (default: a private one on
     ``device``, ``None`` = CUDA); its engine's device is used. mesh:
-    optional shard count / ``Mesh`` — the private service then spans a
-    ``ShardedEngine``'s logical shards.
+    optional shard count / ``Mesh`` / ``ProcessMesh`` — the private
+    service then spans a ``ShardedEngine``'s shards (over a process mesh
+    each rank gathers from its slice of x; ``_common``).
     """
     service, dev = _common.placement(mode, service, mesh, device)
     col = torch.as_tensor(prob.col, device=dev)
@@ -134,7 +135,8 @@ def run(prob: SpmvProblem, n_iters: int, *, mode: str = "pipelined",
         return x.cpu().numpy()
 
     def access(loop, k, state):
-        return loop.submit_gather(state, col)
+        tab, kw = _common.rank_slice(service, state)
+        return loop.submit_gather(tab, col, **kw)
 
     def compute(k, state, xg):
         return _rescale(compute_y(xg))

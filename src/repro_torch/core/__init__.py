@@ -25,7 +25,8 @@ from repro_torch.core.reorder import (RowTablePlan, coalesce,
                                       cross_stream_gain, make_row_table_plan,
                                       sort_indices)
 from repro_torch.core.scheduler import (FailedResult, FlushHandle,
-                                        FlushReport, Scheduler, Ticket)
+                                        FlushReport, PlanDivergence,
+                                        Scheduler, Ticket)
 
 __all__ = [
     "isa", "reorder", "interop", "Engine", "bulk_gather", "bulk_scatter",
@@ -36,4 +37,5 @@ __all__ = [
     "coalesce_streams", "cross_stream_gain", "TracedExecutable",
     "structural_signature", "resolve_device", "BatchUnsupported",
     "Scheduler", "Ticket", "FlushReport", "FlushHandle", "FailedResult",
+    "PlanDivergence",
 ]

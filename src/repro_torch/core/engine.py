@@ -137,8 +137,9 @@ class TracedExecutable:
                 f"got {len(envs)} envs and {len(regs_list)} register sets")
         spd = dict(spd or {})
         self._count(dict(envs[0]), dict(regs_list[0]), spd)
-        return self.engine.run_lanes(self.program, envs, regs_list, spd,
-                                     shared=self.shared, dtypes=dtypes)
+        return self.engine._constrain_batch(self.program, envs, regs_list,
+                                            spd, shared=self.shared,
+                                            dtypes=dtypes)
 
 
 @dataclasses.dataclass
@@ -495,6 +496,18 @@ class Engine:
                        for name, value in st.env.items()}
             out.append((out_env, {name: t[b] for name, t in st.spd.items()}))
         return out
+
+    def _constrain_batch(self, program: isa.AccessProgram,
+                         envs: Sequence[Mapping],
+                         regs_list: Sequence[Mapping], spd=None, *,
+                         shared: frozenset = frozenset(),
+                         dtypes: Mapping | None = None) -> list:
+        """Where a batched group's lanes run: all of them in one run here
+        (``run_lanes``). The reference spreads the stacked lane axis over
+        its device mesh under this name; a sharded engine over a process
+        mesh splits the lanes across its ranks."""
+        return self.run_lanes(program, envs, regs_list, spd, shared=shared,
+                              dtypes=dtypes)
 
     def jit_run(self, program: isa.AccessProgram):
         """Fetch (or build) the cached executable — repeat calls with a

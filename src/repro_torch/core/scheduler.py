@@ -35,11 +35,25 @@ Failures stay local: a group whose lanes cannot share one batched run
 (``BatchUnsupported``, and only that) falls back to per-program runs, and
 any plan node whose emission raises resolves its tickets to
 ``FailedResult`` without poisoning the rest of the window.
+
+Over a process mesh (``ShardedEngine(ProcessMesh)``: one scheduler per
+rank, SPMD) every rank makes the same submissions in the same order, and
+a row-sharded table is submitted as the rank's slice with the whole
+table's ``n_rows``. Each rank lowers its own window; one agreement per
+window (``_agree``: an all-gather of a small host object) holds every
+rank's digest of the window signature, the lowering's decisions and the
+inputs that cut the window against rank 0's, and agrees the exchange
+capacities (the largest any rank measured) and the submissions refused
+before any collective (every rank poisons the union). A window that
+differs between ranks raises ``PlanDivergence`` on every rank, naming the
+first leaf that differs, instead of issuing mismatched collectives.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import os
+import time
 import weakref
 from collections import OrderedDict
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -78,6 +92,12 @@ class FailedResult:
     """Stored in place of a result when the owning plan node's execution
     raised; ``Scheduler.result`` re-raises ``error``."""
     error: Exception
+
+
+class PlanDivergence(RuntimeError):
+    """Over a process mesh, this rank's window is not rank 0's (another
+    submission, stream shape or cut): raised on every rank by the window's
+    agreement, before any collective of the window is issued."""
 
 
 class QueueFullError(RuntimeError):
@@ -210,6 +230,19 @@ class FlushReport:
             "overlap_fraction": (ov_sum / ov_n) if ov_n else None,
         }
 
+    def exchange_record(self) -> Optional[Dict[str, object]]:
+        """``exchange_summary`` with, over a process mesh, how the window's
+        exchanges moved (``transport``) and how many collectives its
+        sharded nodes issued on this rank (``collectives``, from
+        ``ShardStats``): the record ``serve.telemetry`` folds."""
+        out = self.exchange_summary()
+        ways = {st.transport for st in self.shard_stats.values()}
+        if out is None or ways == {"logical"}:
+            return out
+        return {**out, "transport": "/".join(sorted(ways)),
+                "collectives": sum(st.collectives
+                                   for st in self.shard_stats.values())}
+
 
 class FlushHandle:
     """Non-blocking handle for one dispatched flush window.
@@ -230,6 +263,7 @@ class FlushHandle:
         self.report = report
         self._event = event
         self._done = event is None
+        self.resolved = event is None    # result() was called (or no event)
 
     def poll(self) -> bool:
         """True once the window's work has finished on the device."""
@@ -250,6 +284,7 @@ class FlushHandle:
             self._event.synchronize()
             self._event = None
             self._done = True
+        self.resolved = True
         return self.report
 
 
@@ -289,11 +324,9 @@ class Scheduler:
                  strict: Optional[bool] = None):
         self.engine = engine if engine is not None else Engine(
             tile_size=tile_size, optimize=optimize, use_kernel=use_kernel)
-        # an engine the plan IR cannot drive says why (a sharded engine
-        # over a process mesh)
-        why = getattr(self.engine, "unschedulable", None)
-        if why:
-            raise NotImplementedError(why)
+        # a sharded engine over a process mesh: one scheduler per rank,
+        # every window agreed across the ranks (``_agree``)
+        self.process = bool(getattr(self.engine, "process", False))
         self.max_batch = int(max_batch)
         if verify is None:
             verify = os.environ.get(
@@ -335,6 +368,10 @@ class Scheduler:
                       "rejects": 0, "deferrals": 0,
                       "hazard_errors": 0, "hazard_warnings": 0,
                       "hazards_by_tenant": {}}
+        if self.process:
+            # per-window plan agreement: all-gathers issued and their
+            # host time (seconds)
+            self.stats.update(agreements=0, agreement_s=0.0)
 
     # -- submission ----------------------------------------------------------
 
@@ -355,6 +392,31 @@ class Scheduler:
         if isinstance(x, torch.Tensor):
             return x.to(self.engine.device)
         return interop.to_tensor(np.asarray(x), device=self.engine.device)
+
+    def _extent(self, dtable: torch.Tensor, n_rows: Optional[int]):
+        """``(table_rows, sliced, error)`` of a submitted table: its own
+        rows, or with ``n_rows`` over a process mesh the whole table's,
+        the submission then carrying the rank's slice. A slice that is
+        not this rank's ``rank_rows`` fails its ticket (an error leaf,
+        agreed across ranks at the flush) rather than raising here."""
+        rows = int(dtable.shape[0])
+        if n_rows is None:
+            return rows, False, None
+        n_rows = int(n_rows)
+        if not self.process:
+            if n_rows != rows:
+                raise ValueError(
+                    f"n_rows={n_rows} but the table has {rows} rows: only "
+                    "a process mesh takes a rank's slice of a table")
+            return rows, False, None
+        lo, hi = self.engine.rank_rows(n_rows)
+        err = None
+        if rows != hi - lo:
+            err = ValueError(
+                f"rank {self.engine.rank} submitted {rows} table rows; its "
+                f"slice of a {n_rows}-row table is rows [{lo}, {hi}): "
+                "submit each rank its own slice (rank_rows)")
+        return n_rows, True, err
 
     def configure_tenant(self, tenant: str, *,
                          weight: Optional[float] = None,
@@ -431,13 +493,20 @@ class Scheduler:
         self._queue.append(leaf)
         return leaf.ticket
 
-    def submit_gather(self, table, idx, *, tenant: str = "core0") -> Ticket:
+    def submit_gather(self, table, idx, *, tenant: str = "core0",
+                      n_rows: Optional[int] = None) -> Ticket:
         """Bulk fast-path: C = table[idx] with *cross-request* coalescing.
 
         All pending gathers against the same table object are fused into a
         single plan node at flush time (whose backend — direct or
         coalesced — the cost model picks); the result for this ticket is
         the (N,)- or (N, D)-shaped gathered tensor.
+
+        Over a process mesh, ``table`` with ``n_rows`` (the whole table's
+        rows) is this rank's slice ``rank_rows(n_rows)``; the gather is
+        sharded and the ticket resolves to the whole result on every
+        rank. A table passed without ``n_rows`` is one every rank holds
+        whole, read locally.
         """
         rejected = self._admit(tenant)
         if rejected is not None:
@@ -454,17 +523,19 @@ class Scheduler:
             didx = torch.from_numpy(host_idx).to(self.engine.device)
         # flatten up front: one canonical stream shape for every path
         didx = didx.reshape(-1)
+        rows, sliced, err = self._extent(dtable, n_rows)
         leaf = plan_nodes.GatherNode(
             nid=-1, ticket=self._ticket(tenant), table=dtable, idx=didx,
             table_id=id(table), table_ref=table,
-            n_lanes=int(didx.shape[0]), table_rows=int(dtable.shape[0]),
-            host_idx=host_idx)
+            n_lanes=int(didx.shape[0]), table_rows=rows, sliced=sliced,
+            host_idx=host_idx, error=err)
         self._gather_queue.append(leaf)
         return leaf.ticket
 
     def submit_rmw(self, table, idx, values, *, op: str = "ADD",
                    cond=None, tenant: str = "core0",
-                   unsigned: Optional[bool] = None) -> Ticket:
+                   unsigned: Optional[bool] = None,
+                   n_rows: Optional[int] = None) -> Ticket:
         """Bulk RMW fast-path: ``table[idx] op= values`` with cross-request
         fusion.
 
@@ -478,7 +549,9 @@ class Scheduler:
         NumPy array. The ticket resolves to the table's state at the *end
         of the flush window*; gathers in the same window read the window's
         initial state — don't mix reads and writes of one table inside a
-        window.
+        window. Over a process mesh, ``table`` with ``n_rows`` is this
+        rank's slice (as for ``submit_gather``) and the ticket resolves
+        to the rank's updated slice.
         """
         if op not in isa.RMW_OPS:
             raise ValueError(f"op {op!r} not in RMW_OPS {isa.RMW_OPS}")
@@ -490,14 +563,15 @@ class Scheduler:
                 np.asarray(table).dtype.name in ("uint32", "uint64")
         dtable = self._on_device(table)
         didx = bulk_ops._as_index(self._on_device(idx)).reshape(-1)
+        rows, sliced, err = self._extent(dtable, n_rows)
         leaf = plan_nodes.RmwNode(
             nid=-1, ticket=self._ticket(tenant), table=dtable, idx=didx,
             values=self._on_device(values), op=op,
             cond=None if cond is None
             else self._on_device(cond).reshape(-1).to(torch.bool),
             table_id=id(table), table_ref=table,
-            n_lanes=int(didx.shape[0]), table_rows=int(dtable.shape[0]),
-            unsigned=bool(unsigned))
+            n_lanes=int(didx.shape[0]), table_rows=rows,
+            unsigned=bool(unsigned), sliced=sliced, error=err)
         self._rmw_queue.append(leaf)
         return leaf.ticket
 
@@ -622,8 +696,8 @@ class Scheduler:
         ctx = plan_passes.LowerContext(
             max_batch=self.max_batch, cost=self.cost, engine=self.engine,
             num_shards=int(getattr(self.engine, "num_shards", 1)),
-            sharded_capable=backend.sharded, replay=skeleton,
-            verify=self.verify)
+            sharded_capable=backend.sharded, process=self.process,
+            replay=skeleton, verify=self.verify)
         plan = plan_passes.lower(leaves, order, ctx, backend)
         plan.signature = signature
         plan.cache_hit = skeleton is not None
@@ -649,17 +723,18 @@ class Scheduler:
     # -- execution -----------------------------------------------------------
 
     def flush(self, *, inflight_ok: bool = False,
-              drain_limit: Optional[int] = None) -> FlushReport:
+              drain_limit: Optional[int] = None, cut=None) -> FlushReport:
         """Blocking flush: dispatch the window and wait for retirement.
 
         A thin wrapper over ``flush_async`` — the decoupled access/execute
         pipeline (``repro_torch.pipeline``) uses the async form directly.
         """
         return self.flush_async(inflight_ok=inflight_ok,
-                                drain_limit=drain_limit).result()
+                                drain_limit=drain_limit, cut=cut).result()
 
     def flush_async(self, *, inflight_ok: bool = False,
-                    drain_limit: Optional[int] = None) -> FlushHandle:
+                    drain_limit: Optional[int] = None,
+                    cut=None) -> FlushHandle:
         """Drain the queues: lower to a plan, emit every node, retire.
 
         Non-blocking on the card: every node's work is queued on the
@@ -681,9 +756,18 @@ class Scheduler:
         smallest WFQ keys (per-tenant SLO weights, ``configure_tenant``);
         deferred leaves stay queued and their tenants' virtual times
         advance so the next window carries the fairness debt forward.
+
+        Over a process mesh the window is agreed across ranks first
+        (``_agree``); ``cut`` names the inputs that decided to cut it here
+        (a service's clock reading), which must then be equal on every
+        rank, as must ``drain_limit``. The in-flight guard there tests
+        whether the last handle was resolved (``result()``), never the
+        device: a branch on an event query could differ between ranks.
         """
         prev = self._inflight() if self._inflight is not None else None
-        if prev is not None and not prev.done and not inflight_ok:
+        busy = prev is not None and not (prev.resolved if self.process
+                                         else prev.done)
+        if busy and not inflight_ok:
             raise RuntimeError(
                 "flush while a previous async flush window is still in "
                 "flight: resolve its FlushHandle (result()) or poll() it "
@@ -691,8 +775,13 @@ class Scheduler:
                 "windows deliberately (what repro_torch.pipeline"
                 ".DecoupledLoop does)")
         try:
-            plan = self._lower_pending(drain_limit)
+            plan, lower_err = self._lower_pending(drain_limit), None
         except Exception as e:
+            plan, lower_err = None, e
+        if self.process:
+            plan, lower_err = self._agree(plan, lower_err, drain_limit, cut)
+        if lower_err is not None:
+            e = lower_err
             # last resort: per-leaf/per-node isolation lives in the
             # passes, but an unforeseen lowering failure must still fail
             # the WINDOW, never poison the scheduler — drain the queues,
@@ -796,6 +885,96 @@ class Scheduler:
         self._inflight = weakref.ref(handle)
         return handle
 
+    # -- agreement over a process mesh ----------------------------------------
+
+    def _agree(self, plan, lower_err, drain_limit, cut):
+        """One window's agreement across the ranks of a process mesh: an
+        all-gather of each rank's digest of the window (signature, drain
+        limit, cut), of its lowering's decisions (the skeleton) and of the
+        leaves it refused, with its exchange capacities. Returns the plan
+        to execute and the window's failure (None when it runs).
+
+        A window or a decision that differs from rank 0's raises
+        ``PlanDivergence`` on every rank. A lowering that failed on any
+        rank fails the window on every rank. Leaves refused on some rank
+        (a wrong slice) are refused on every rank: the window is lowered
+        again with the union refused, its exchanges on the safe plan
+        (block placement, raw wire, worst-case capacity). Otherwise each
+        mesh-placed node takes the largest capacity any rank measured."""
+        t0 = time.perf_counter()
+        sig = None if plan is None else plan.signature
+        sharded = [] if plan is None else [
+            n for n in plan.roots if isinstance(n, plan_nodes.ShardedNode)]
+        refused = {} if plan is None else {
+            lf.ticket.tid: repr(lf.error) for lf in plan.leaves
+            if getattr(lf, "error", None) is not None}
+        mine = {"window": _digest((sig, drain_limit, cut)),
+                "cut": (drain_limit, cut),
+                "decisions": None if plan is None
+                else _digest(plan_passes.skeleton_of(plan)),
+                "refused": refused,
+                "caps": [n.capacity for n in sharded],
+                "failed": None if lower_err is None else repr(lower_err)}
+        got = self.engine.agree(mine)
+        self.stats["agreements"] += 1
+        try:
+            bad = [r for r, g in enumerate(got)
+                   if g["window"] != got[0]["window"]]
+            if bad:
+                # every rank sees the same list: every rank takes this
+                # second exchange, to name what differs, and raises
+                sigs = self.engine.agree(sig)
+                self.stats["agreements"] += 1
+                raise PlanDivergence(_divergence(sigs, got, bad))
+            failed = [(r, g["failed"]) for r, g in enumerate(got)
+                      if g["failed"]]
+            if failed:
+                return plan, lower_err or RuntimeError(
+                    f"rank {failed[0][0]} failed to lower this window: "
+                    f"{failed[0][1]}")
+            union: Dict[int, tuple] = {}
+            for r, g in enumerate(got):
+                for tid, msg in g["refused"].items():
+                    union.setdefault(tid, (r, msg))
+            if any(set(g["refused"]) != set(union) for g in got):
+                return self._relower_refusing(plan, union, drain_limit), None
+            bad = [r for r, g in enumerate(got)
+                   if g["decisions"] != got[0]["decisions"]]
+            if bad:
+                raise PlanDivergence(
+                    f"over a process mesh every rank must lower the same "
+                    f"plan (ROADMAP A14b): rank(s) {bad} decided otherwise "
+                    f"than rank 0 on the same window (their streams' "
+                    f"values or residence differ)")
+            for node, caps in zip(sharded, zip(*(g["caps"] for g in got))):
+                node.capacity = max(caps)
+            return plan, None
+        finally:
+            self.stats["agreement_s"] += time.perf_counter() - t0
+
+    def _relower_refusing(self, plan, union, drain_limit):
+        """Lower the window again with every leaf in ``union`` (ticket id
+        -> (rank, error)) refused, as on the rank that refused it; the
+        mesh-placed nodes take the safe exchange plan, which needs no
+        agreed measurement."""
+        # only gather and RMW leaves are validated against the mesh
+        for q in (self._gather_queue, self._rmw_queue):
+            for leaf in q:
+                hit = union.get(leaf.ticket.tid)
+                if hit is not None and leaf.error is None:
+                    leaf.error = ValueError(
+                        f"refused on rank {hit[0]}: {hit[1]}")
+        self._lowered = None
+        self._plan_cache.pop(plan.signature, None)
+        plan = self._lower_pending(drain_limit)
+        # the skeleton of a partly refused window must not be replayed on
+        # a later, whole one with the same signature
+        self._plan_cache.pop(plan.signature, None)
+        for node in plan.roots:
+            if isinstance(node, plan_nodes.ShardedNode):
+                node.placement, node.codec, node.capacity = "block", "raw", 0
+        return plan
+
     # -- emitters (registered on the "local" backend) ------------------------
     # Thin by contract: every fusion/grouping/backend decision was made by
     # the passes; these only execute the annotated node.
@@ -881,6 +1060,52 @@ class Scheduler:
             unsigned=node.unsigned, device=self.engine.device)
         ctx.tables[node.table_id] = new
         ctx.rmw_members.setdefault(node.table_id, []).extend(node.members)
+
+
+# ---------------------------------------------------------------------------
+# process-mesh agreement helpers
+# ---------------------------------------------------------------------------
+
+def _canon(x):
+    """``x`` with its sets sorted and dataclasses as tuples, so that its
+    ``repr`` is the same in every process (set order follows the string
+    hash, which each process seeds anew)."""
+    if isinstance(x, (set, frozenset)):
+        return ("set",) + tuple(sorted((_canon(v) for v in x), key=repr))
+    if isinstance(x, (tuple, list)):
+        return tuple(_canon(v) for v in x)
+    if isinstance(x, dict):
+        return ("dict",) + tuple(sorted(
+            ((repr(_canon(k)), _canon(v)) for k, v in x.items())))
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,) + tuple(
+            _canon(getattr(x, f.name)) for f in dataclasses.fields(x))
+    return x
+
+
+def _digest(x) -> str:
+    return hashlib.sha256(repr(_canon(x)).encode()).hexdigest()
+
+
+def _divergence(sigs, got, bad) -> str:
+    """What differs between rank 0's window and the first diverging
+    rank's: the first leaf, the leaf count, or the cut."""
+    r = bad[0]
+    head = (f"over a process mesh every rank must submit the same window "
+            f"(ROADMAP A14b): rank(s) {bad} differ from rank 0")
+    a, b = sigs[0], sigs[r]
+    if a is None or b is None:
+        return f"{head}: a lowering failed before its signature"
+    rows_a, rows_b = a[0], b[0]
+    for i, (x, y) in enumerate(zip(rows_a, rows_b)):
+        if x != y:
+            return (f"{head} first at leaf {i} (fair order): rank 0 "
+                    f"{x!r:.300}, rank {r} {y!r:.300}")
+    if len(rows_a) != len(rows_b):
+        return (f"{head}: rank 0 has {len(rows_a)} leaves, rank {r} "
+                f"{len(rows_b)}")
+    return (f"{head} in the window's cut (drain_limit, cut): rank 0 "
+            f"{got[0]['cut']!r}, rank {r} {got[r]['cut']!r}")
 
 
 # ---------------------------------------------------------------------------

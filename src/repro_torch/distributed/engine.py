@@ -59,8 +59,12 @@ The route (exchange) and exec (owner-local compute) stages run fused in
 process mesh as an asynchronous collective) so the emit stage can put
 every sharded node's exchange in flight before any node's exec. Importing
 this module registers the **"sharded" plan backend**
-(``repro_torch.plan.emit``); it drives logical meshes only (a process
-mesh's plans would have to be agreed across ranks, ROADMAP A14b).
+(``repro_torch.plan.emit``). Over a process mesh each rank's scheduler
+lowers the same window, agreed once per window (``agree``, see
+``core.scheduler``); a gather node's result is put back together whole
+on every rank, an RMW node's is the rank's updated slice, and a batched
+program group runs its block of lanes on each rank, the results
+all-gathered (``_constrain_batch``).
 """
 from __future__ import annotations
 
@@ -74,18 +78,11 @@ import torch
 from repro_torch import plan
 from repro_torch.core import bulk_ops, interop, isa
 from repro_torch.core.device import resolve_device
-from repro_torch.core.engine import Engine
+from repro_torch.core.engine import BatchUnsupported, Engine
 from repro_torch.distributed import exchange
 from repro_torch.distributed.mesh import (ProcessMesh, as_mesh,
                                           shard_row_ranges)
 from repro_torch.plan.cost import CostModel, ExchangePlan
-
-#: why a ``Scheduler`` refuses an engine over a process mesh
-PROCESS_MESH_UNSCHEDULED = (
-    "the Scheduler, the 'sharded' plan backend, AccessService(mesh=) and "
-    "the apps run on logical meshes only: over a ProcessMesh their plans "
-    "would have to be agreed across ranks (ROADMAP A14b)")
-
 
 class ShardStats:
     """Per-stream record of one sharded bulk access.
@@ -213,19 +210,25 @@ def _host(x) -> Optional[np.ndarray]:
     return np.asarray(x)
 
 
-def gather_blocks(out, mesh) -> torch.Tensor:
+def gather_blocks(out, mesh, n: Optional[int] = None) -> torch.Tensor:
     """Put the per-rank results of a process mesh back together, on every
     rank: gather blocks (``rank_lanes``) into the whole ``(n, ...)``
     result, or RMW slices (``rank_rows``) into the whole table. Both are
-    the ceil-div split, so one function serves both. On a logical mesh
-    (or an int) ``out`` is already whole and comes back as it is."""
+    the ceil-div split, so one function serves both. ``n``, the whole
+    extent when the caller knows it, saves the collective that exchanges
+    the sizes. On a logical mesh (or an int) ``out`` is already whole and
+    comes back as it is."""
     if not isinstance(mesh, ProcessMesh):
         return out
     out = out if isinstance(out, torch.Tensor) else torch.as_tensor(out)
     out = out.to(mesh.device)
-    k = torch.tensor([int(out.shape[0])], dtype=torch.int64,
-                     device=mesh.device)
-    sizes = exchange.all_gather(k, mesh).reshape(-1).tolist()
+    if n is None:
+        k = torch.tensor([int(out.shape[0])], dtype=torch.int64,
+                         device=mesh.device)
+        sizes = exchange.all_gather(k, mesh).reshape(-1).tolist()
+    else:
+        sizes = [hi - lo for lo, hi in
+                 shard_row_ranges(n, mesh.num_shards)]
     per = max(sizes)
     pad = out.new_zeros((per,) + tuple(out.shape[1:]))
     pad[:out.shape[0]] = out
@@ -268,7 +271,6 @@ class ShardedEngine(Engine):
         if self.process:
             self.rank = self.mesh.rank
             self.transport = exchange.transport(self.mesh, self.device)
-            self.unschedulable = PROCESS_MESH_UNSCHEDULED
             self._shards = torch.tensor([self.rank], device=self.device)
         else:
             self.rank = None
@@ -279,6 +281,8 @@ class ShardedEngine(Engine):
         self._xplan_cache: "OrderedDict[tuple, tuple]" = OrderedDict()
         self.exchange_cost = cost_model or CostModel()
         self.last_shard_stats: Optional[ShardStats] = None
+        # collectives this engine issued (process mesh), every kind
+        self.collectives = 0
 
     # -- what this process holds ----------------------------------------------
 
@@ -321,6 +325,109 @@ class ShardedEngine(Engine):
                 f"a {n_rows}-row table is rows [{lo}, {hi}): pass each rank "
                 "its own slice (rank_rows)")
         return int(n_rows)
+
+    # -- SPMD agreement and the batch split (process mesh) --------------------
+
+    def agree(self, obj) -> list:
+        """Every rank's picklable ``obj`` in rank order (one all-gather of
+        a small host object over the mesh's group): the scheduler's
+        per-window agreement."""
+        if not self.process:
+            return [obj]
+        self.collectives += 2
+        return exchange.all_gather_object(obj, self.mesh)
+
+    def whole(self, out: torch.Tensor, n: int) -> torch.Tensor:
+        """This rank's ceil-div block of an ``n``-row result put back
+        together whole on every rank (one all-gather)."""
+        self.collectives += 1
+        return gather_blocks(out, self.mesh, n)
+
+    @staticmethod
+    def _batch_precheck(program, envs, regs_list, shared) -> None:
+        """``run_lanes``'s ``BatchUnsupported`` tests over *every* lane,
+        so that all ranks decide alike before each runs its block."""
+        for name, value in envs[0].items():
+            if name in shared:
+                continue
+            if any(not isinstance(e.get(name), torch.Tensor)
+                   or e[name].shape != value.shape
+                   or e[name].dtype != value.dtype for e in envs):
+                raise BatchUnsupported(
+                    f"region {name!r} differs in type or shape across lanes")
+        for ins in program.instrs:
+            if isinstance(ins, isa.RNG):
+                caps = set()
+                for regs in regs_list:
+                    c = Engine._reg(regs, ins.rs1)
+                    caps.add(-1 if isinstance(c, int) and c < 0 else int(c))
+                if len(caps) > 1:
+                    raise BatchUnsupported(
+                        f"range-fuser capacities differ across lanes: "
+                        f"{sorted(caps)}")
+
+    def _constrain_batch(self, program, envs, regs_list, spd=None, *,
+                         shared=frozenset(), dtypes=None) -> list:
+        """A batched group over a process mesh: rank ``r`` runs its block
+        of the ``k`` lanes (``rank_lanes`` over the batch axis; a short
+        last block repeats the group's last lane), against the whole
+        program environments every rank holds; then one all-gather puts
+        the lanes' written regions and tiles back on every rank. The
+        result is the single-device ``run_lanes``'s. A rank whose block
+        fails fails the group on every rank (its status is all-gathered
+        first)."""
+        if not self.process or self.num_shards == 1:
+            return super()._constrain_batch(program, envs, regs_list, spd,
+                                            shared=shared, dtypes=dtypes)
+        k, m = len(envs), self.num_shards
+        self._batch_precheck(program, envs, regs_list, shared)
+        per = -(-k // m)
+        lanes = [min(self.rank * per + j, k - 1) for j in range(per)]
+        try:
+            outs, err = self.run_lanes(
+                program, [envs[i] for i in lanes],
+                [regs_list[i] for i in lanes], spd, shared=shared,
+                dtypes=dtypes), None
+        except Exception as e:
+            outs, err = None, e
+        code = 0 if err is None else (
+            2 if isinstance(err, BatchUnsupported) else 1)
+        status = exchange.all_gather(torch.tensor(
+            [code], dtype=torch.int32, device=self.device),
+            self.mesh).reshape(-1).tolist()
+        self.collectives += 1
+        if any(status):
+            if err is not None:
+                raise err
+            bad = [r for r, c in enumerate(status) if c]
+            if 2 in status:
+                raise BatchUnsupported(f"rank(s) {bad}: the lanes cannot "
+                                       "share one batched run")
+            raise RuntimeError(f"rank(s) {bad} failed their block of the "
+                               "batched group")
+        written = sorted({ins.base for ins in program.instrs
+                          if isinstance(ins, (isa.IST, isa.IRMW, isa.SST))})
+        tiles = list(outs[0][1])
+        parts = [[env[n] for n in written] + [sp[n] for n in tiles]
+                 for env, sp in outs]
+        flat = torch.stack([torch.cat([exchange._as_bytes(
+            t.reshape(1, -1)).reshape(-1) for t in lane]) for lane in parts])
+        got = exchange.all_gather(flat, self.mesh)
+        self.collectives += 1
+        got = got.reshape((m * per, -1))[:k]
+        result = []
+        for b in range(k):
+            pieces, off = [], 0
+            for t in parts[0]:
+                nb = t.numel() * t.element_size()
+                pieces.append(got[b, off:off + nb].clone().view(
+                    t.dtype).reshape(t.shape))
+                off += nb
+            env = dict(envs[b])
+            env.update(zip(written, pieces[:len(written)]))
+            result.append(({n: env[n] for n in envs[b]},
+                           dict(zip(tiles, pieces[len(written):]))))
+        return result
 
     # -- host-side exchange planning ----------------------------------------
 
@@ -417,11 +524,14 @@ class ShardedEngine(Engine):
 
     def _plan_exchange(self, idx, valid, *, n_rows: int, kind: str,
                        placement: Optional[str] = None,
-                       codec: Optional[str] = None):
+                       codec: Optional[str] = None,
+                       capacity: Optional[int] = None):
         """Measure (or replay the cached measurement of the same, unchanged
         stream tensor) and let the cost model decide. ``placement``/
         ``codec`` pin the policy (the plan-IR annotation); the capacity
-        always comes from the measurement."""
+        comes from the measurement, or is ``capacity`` when the caller
+        agreed it across the ranks of a process mesh (0: the worst case,
+        the slice length)."""
         key = (id(idx), id(valid), n_rows, kind, self.num_shards)
         tensors = isinstance(idx, torch.Tensor) and (
             valid is None or isinstance(valid, torch.Tensor))
@@ -443,6 +553,8 @@ class ShardedEngine(Engine):
             # a pinned "owner" placement without a measurable stream has
             # no permutation to apply — fall back to block, never guess
             xplan = dataclasses.replace(xplan, placement="block")
+        if capacity is not None:
+            xplan = dataclasses.replace(xplan, capacity=int(capacity))
         return xplan, (perm if xplan.placement == "owner" else None)
 
     def plan_node_exchange(self, node, cost) -> ExchangePlan:
@@ -724,14 +836,16 @@ class ShardedEngine(Engine):
     def gather_start(self, table, idx, *, valid=None,
                      placement: Optional[str] = None,
                      codec: Optional[str] = None,
-                     n_rows: Optional[int] = None) -> ExchangeInflight:
+                     n_rows: Optional[int] = None,
+                     capacity: Optional[int] = None) -> ExchangeInflight:
         """Dispatch the route stage (dedup -> split -> pack -> index
         exchange) of a sharded gather; only the table's shape is read.
         Finish with ``gather_finish``."""
         return self._mark_route(self._gather_route(
-            table, idx, valid, placement, codec, n_rows))
+            table, idx, valid, placement, codec, n_rows, capacity))
 
-    def _gather_route(self, table, idx, valid, placement, codec, n_rows):
+    def _gather_route(self, table, idx, valid, placement, codec, n_rows,
+                      capacity=None):
         table = self._tensor(table)
         n_rows = self._n_rows(table, n_rows)
         idx_t = bulk_ops._as_index(self._tensor(idx)).reshape(-1)
@@ -740,7 +854,8 @@ class ShardedEngine(Engine):
             return ExchangeInflight(kind="gather:empty")
         xplan, perm = self._plan_exchange(idx, valid, n_rows=n_rows,
                                           kind="gather",
-                                          placement=placement, codec=codec)
+                                          placement=placement, codec=codec,
+                                          capacity=capacity)
         # loads clamp (policy), as bulk_gather: any mesh size agrees with
         # the single-device engine on out-of-range streams
         idx_p, mask, per = self._pad_stream(idx_t.clamp(0, n_rows - 1),
@@ -859,17 +974,20 @@ class ShardedEngine(Engine):
     def sharded_gather(self, table, idx, *, valid=None,
                        placement: Optional[str] = None,
                        codec: Optional[str] = None,
-                       n_rows: Optional[int] = None) -> torch.Tensor:
+                       n_rows: Optional[int] = None,
+                       capacity: Optional[int] = None) -> torch.Tensor:
         """``C = table[idx]`` with dedup and the reorder->coalesce pipeline
         running owner-locally for every shard; sets ``last_shard_stats``.
 
         ``valid``: optional ``(len(idx),)`` bool mask — False lanes never
         enter the exchange and read 0 (the scheduler's coalesce padding).
-        ``placement``/``codec`` pin the exchange plan. On a process mesh
+        ``placement``/``codec`` pin the exchange plan, ``capacity`` the
+        bucket size (else measured). On a process mesh
         ``table`` is this rank's slice, ``n_rows`` the whole table's rows
         (required) and the result this rank's block of
         lanes (``rank_lanes``)."""
-        fl = self._gather_route(table, idx, valid, placement, codec, n_rows)
+        fl = self._gather_route(table, idx, valid, placement, codec, n_rows,
+                                capacity)
         return self._gather_exec(table, fl, None)
 
     # -- RMW ------------------------------------------------------------------
@@ -878,16 +996,17 @@ class ShardedEngine(Engine):
                   valid=None, placement: Optional[str] = None,
                   codec: Optional[str] = None,
                   unsigned: Optional[bool] = None,
-                  n_rows: Optional[int] = None) -> ExchangeInflight:
+                  n_rows: Optional[int] = None,
+                  capacity: Optional[int] = None) -> ExchangeInflight:
         """Route stage of a sharded RMW: pre-combine, split, and ship the
         index spill and the combined payload; only the table's shape is
         read. ``rmw_finish`` applies the landed updates."""
         return self._mark_route(self._rmw_route(
             table, idx, values, op, valid, placement, codec, unsigned,
-            n_rows))
+            n_rows, capacity))
 
     def _rmw_route(self, table, idx, values, op, valid, placement, codec,
-                   unsigned, n_rows):
+                   unsigned, n_rows, capacity=None):
         if op not in isa.RMW_OPS:
             raise ValueError(f"op {op!r} not in RMW_OPS {isa.RMW_OPS} "
                              "(sharded RMW needs reorder-safe combines)")
@@ -904,7 +1023,7 @@ class ShardedEngine(Engine):
             vals = vals.to(table.dtype)
         xplan, perm = self._plan_exchange(idx, valid, n_rows=n_rows,
                                           kind="rmw", placement=placement,
-                                          codec=codec)
+                                          codec=codec, capacity=capacity)
         # stores drop (policy): out-of-range destinations never enter the
         # exchange, as bulk_rmw routes them out
         in_range = (idx_t >= 0) & (idx_t < n_rows)
@@ -976,7 +1095,8 @@ class ShardedEngine(Engine):
                     valid=None, placement: Optional[str] = None,
                     codec: Optional[str] = None,
                     unsigned: Optional[bool] = None,
-                    n_rows: Optional[int] = None) -> torch.Tensor:
+                    n_rows: Optional[int] = None,
+                    capacity: Optional[int] = None) -> torch.Tensor:
         """``table[idx] op= values`` across the mesh, **one-way**:
         duplicate destinations merge with ``op`` on the source shard, one
         combined update per distinct row crosses the fabric, and the
@@ -987,7 +1107,7 @@ class ShardedEngine(Engine):
         updated slice (``table`` is the slice, ``n_rows`` as for
         ``sharded_gather``)."""
         fl = self._rmw_route(table, idx, values, op, valid, placement,
-                             codec, unsigned, n_rows)
+                             codec, unsigned, n_rows, capacity)
         return self._rmw_exec(table, fl, None)
 
     def _record_stats(self, sent, recv, uniq, fl: ExchangeInflight,
@@ -1000,6 +1120,7 @@ class ShardedEngine(Engine):
                 [sent.reshape(-1), recv.reshape(-1), uniq.reshape(-1)]).to(
                     torch.int32), self.mesh)
             fl.collectives += 1
+            self.collectives += fl.collectives
             sent, recv, uniq = allc[:, :ns], allc[:, ns], allc[:, ns + 1]
         # no host transfer here: the counts stay on the device
         offd = ns * (ns - 1)
@@ -1081,6 +1202,17 @@ def _shard_place(p: "plan.Plan", ctx: "plan.LowerContext") -> "plan.Plan":
     return dataclasses.replace(p, trace=p.trace + (d,))
 
 
+def _call_args(node, ctx) -> dict:
+    """A sharded node's engine call: the plan's policy (placement, codec)
+    and, over a process mesh, the whole table's rows (the node's table is
+    the rank's slice) and the capacity agreed across the ranks."""
+    kw = dict(placement=node.placement, codec=node.codec)
+    if ctx.engine.process:
+        kw.update(n_rows=plan.unwrap(node).table_rows,
+                  capacity=node.capacity)
+    return kw
+
+
 def _prefetch_gather_sharded(node, ctx: "plan.EmitContext"):
     """Route-stage prefetch: issue this gather's exchange before any
     node's exec dispatches."""
@@ -1088,14 +1220,15 @@ def _prefetch_gather_sharded(node, ctx: "plan.EmitContext"):
     if g.unique_idx is None or int(g.unique_idx.shape[0]) == 0:
         return
     ctx.exchange_inflight[node.nid] = ctx.engine.gather_start(
-        g.table, g.unique_idx, valid=g.pad_valid,
-        placement=node.placement, codec=node.codec)
+        g.table, g.unique_idx, valid=g.pad_valid, **_call_args(node, ctx))
 
 
 def _emit_gather_sharded(node, ctx: "plan.EmitContext"):
     """Owner-local fused fetch across the mesh. Coalesce padding is
     masked out via ``pad_valid``, as in the reference (pad lanes would
-    skew the exchange toward the max row's owner)."""
+    skew the exchange toward the max row's owner). Over a process mesh
+    the rank's block of the distinct rows is put back together whole on
+    every rank, so each ticket resolves to its whole result."""
     g = plan.unwrap(node)
     fl = ctx.exchange_inflight.pop(node.nid, None)
     if fl is not None:
@@ -1103,9 +1236,13 @@ def _emit_gather_sharded(node, ctx: "plan.EmitContext"):
     else:
         packed = ctx.engine.sharded_gather(
             g.table, g.unique_idx, valid=g.pad_valid,
-            placement=node.placement, codec=node.codec)
-    if ctx.engine.last_shard_stats is not None:
-        ctx.shard_stats[g.table_id] = ctx.engine.last_shard_stats
+            **_call_args(node, ctx))
+    st = ctx.engine.last_shard_stats
+    if ctx.engine.process:
+        packed = ctx.engine.whole(packed, int(g.unique_idx.shape[0]))
+    if st is not None:
+        st.collectives += ctx.engine.process
+        ctx.shard_stats[g.table_id] = st
     for m, inv in zip(g.members, g.inverses):
         ctx.results[m.ticket.tid] = packed[inv]
 
@@ -1119,12 +1256,13 @@ def _prefetch_rmw_sharded(node, ctx: "plan.EmitContext"):
         return
     ctx.exchange_inflight[node.nid] = ctx.engine.rmw_start(
         r.table, r.idx, r.values, op=r.op, valid=r.cond,
-        placement=node.placement, codec=node.codec, unsigned=r.unsigned)
+        unsigned=r.unsigned, **_call_args(node, ctx))
 
 
 def _emit_rmw_sharded(node, ctx: "plan.EmitContext"):
     """Owner-local fused RMW across the mesh; ``cond`` lanes stay out of
-    the exchange."""
+    the exchange. Over a process mesh the table is the rank's slice, and
+    so is the new state its tickets resolve to."""
     r = plan.unwrap(node)
     table = ctx.tables.get(r.table_id, r.table)
     fl = ctx.exchange_inflight.pop(node.nid, None)
@@ -1132,9 +1270,8 @@ def _emit_rmw_sharded(node, ctx: "plan.EmitContext"):
         new = ctx.engine.rmw_finish(table, fl)
     else:
         new = ctx.engine.sharded_rmw(table, r.idx, r.values, op=r.op,
-                                     valid=r.cond,
-                                     placement=node.placement,
-                                     codec=node.codec, unsigned=r.unsigned)
+                                     valid=r.cond, unsigned=r.unsigned,
+                                     **_call_args(node, ctx))
     if ctx.engine.last_shard_stats is not None:
         ctx.shard_stats[("rmw", r.table_id, r.op)] = \
             ctx.engine.last_shard_stats

@@ -499,3 +499,21 @@ def all_gather(x: torch.Tensor, mesh) -> torch.Tensor:
         return dist.all_gather(list(dst.chunk(m)), src, group=mesh.group,
                                async_op=True)
     return _collective(mesh, flat, m, issue, False)
+
+
+def all_gather_object(obj, mesh) -> list:
+    """Every rank's picklable ``obj``, in rank order: the plan agreement's
+    transport (a window's signature digest, decisions and capacities).
+    Two collectives: the pickled sizes, then the bytes padded to the
+    largest. A gloo group carries them in CPU tensors, an nccl group on
+    the mesh's card."""
+    import pickle
+    dev = torch.device("cpu") if mesh.backend == "gloo" else mesh.device
+    data = torch.frombuffer(bytearray(pickle.dumps(obj)), dtype=torch.uint8)
+    size = torch.tensor([int(data.shape[0])], dtype=torch.int64, device=dev)
+    sizes = all_gather(size, mesh).reshape(-1).tolist()
+    pad = torch.zeros((max(sizes),), dtype=torch.uint8, device=dev)
+    pad[:data.shape[0]] = data.to(dev)
+    got = all_gather(pad, mesh).cpu()
+    return [pickle.loads(got[r, :s].numpy().tobytes())
+            for r, s in enumerate(sizes)]

@@ -31,6 +31,11 @@ Two drivers cover the two dependence shapes of Table-1 workloads:
 ``run_sequential`` is the strictly-coupled baseline: a barrier after
 every phase (the window's ``result()``, then the device stream for the
 compute's state).
+
+Over a process mesh (one scheduler per rank) every rank runs the same
+loop: no branch here depends on what only one rank can observe (an
+event query, the clock), so every rank flushes the same windows in the
+same order; ``ready`` may be read but decides nothing.
 """
 from __future__ import annotations
 
@@ -199,7 +204,12 @@ def run_sequential(target, state, n_iters: int, access: Callable,
     loop = DecoupledLoop(target, depth=1)
     for k in range(n_iters):
         tickets = access(loop, k, state)
-        handle = target.flush_async()
+        # nothing is in flight here by construction (the last iteration
+        # ended in both barriers), so the in-flight guard has nothing to
+        # catch; over a process mesh it would test whether every earlier
+        # handle was resolved, and a compute phase may flush windows whose
+        # handles it drops (bfs's relaxation, the apps' appends)
+        handle = target.flush_async(inflight_ok=True)
         handle.result()                      # access barrier
         results = None
         if tickets is not None:

@@ -166,7 +166,30 @@ class CostModel:
     # -- gathers -------------------------------------------------------------
 
     def _sharded_eligible(self, node, ctx) -> bool:
+        """Mesh placement on the table's *whole* extent. Over a process
+        mesh exactly the row-sharded tables (a rank's slice) go to the
+        mesh; a table every rank holds whole stays local."""
+        if getattr(ctx, "process", False):
+            return ctx.sharded_capable and node.sliced
         return ctx.sharded_capable and node.table_rows >= ctx.num_shards
+
+    def local_refusal(self, node) -> Optional[ValueError]:
+        """Why a local path forced by ``force_gather``/``force_rmw`` cannot
+        serve ``node``: its table is a rank's slice, and a local path
+        would read the slice as if it were the whole table. None when the
+        node is not a slice or no local path is forced. The fuse pass
+        fails such a node, on every rank alike."""
+        knob = "force_rmw" if node.kind == "rmw" else "force_gather"
+        path = getattr(self, knob)
+        if not getattr(node, "sliced", False) or path not in ("eager",
+                                                              "bulk"):
+            return None
+        return ValueError(
+            f"{node.kind}#{node.nid}: CostModel.{knob}={path!r} forces a "
+            f"local path, but the table is this rank's slice of "
+            f"{node.table_rows} rows; a local path would read the slice as "
+            f"the whole table. Over a process mesh a row-sharded table is "
+            f"always 'sharded' (ROADMAP A14b)")
 
     def gather_path(self, node, ctx) -> tuple:
         """("eager" | "coalesce", measured factor or None) for one

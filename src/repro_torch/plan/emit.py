@@ -111,7 +111,10 @@ def execute(plan: nodes.Plan, ctx: EmitContext, backend: Backend):
     its route stage dispatched — all cross-node exchanges go on the
     fabric first, so node k's owner-local compute overlaps node k+1's
     communication. A prefetch failure is soft: the node simply falls
-    back to its fused single-dispatch emitter."""
+    back to its fused single-dispatch emitter — except over a process
+    mesh, where a path one rank changes alone would change its sequence
+    of collectives: there the failure raises."""
+    process = getattr(ctx.engine, "process", False)
     if backend.prefetchers:
         for node in plan.roots:
             inner = nodes.unwrap(node)
@@ -123,6 +126,8 @@ def execute(plan: nodes.Plan, ctx: EmitContext, backend: Backend):
             try:
                 pf(node, ctx)
             except Exception:
+                if process:
+                    raise
                 ctx.exchange_inflight.pop(node.nid, None)
                 ctx.stats["prefetch_errors"] = \
                     ctx.stats.get("prefetch_errors", 0) + 1

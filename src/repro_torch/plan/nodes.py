@@ -17,6 +17,10 @@ Leaf nodes (one per submission, created by ``Scheduler.submit*``):
   GatherNode    one bulk ``table[idx]`` request
   RmwNode       one bulk ``table[idx] op= values`` request
 
+``table_rows`` is always the whole table's row count. Over a process mesh
+a row-sharded table is submitted as the rank's slice (``sliced``): such a
+node is always mesh-placed, and its ``table`` is never read as the whole.
+
 Derived nodes (created by passes):
 
   BatchedGroup  ≤ max_batch structurally identical programs; backend
@@ -106,7 +110,9 @@ class GatherNode(PlanNode):
     table_id: int = 0                # id() of the caller's table (fuse key)
     table_ref: object = dataclasses.field(repr=False, default=None)
     n_lanes: int = 0
-    table_rows: int = 0
+    table_rows: int = 0              # the whole table's rows
+    # ``table`` is this rank's slice of a row-sharded table (process mesh)
+    sliced: bool = False
     # the caller's index stream as int32 NumPy when it was submitted as
     # one (clamped by normalize): the cost model may measure it without
     # reading the device
@@ -133,6 +139,7 @@ class RmwNode(PlanNode):
     n_lanes: int = 0
     table_rows: int = 0
     unsigned: bool = False           # int32 container holds u32
+    sliced: bool = False
     error: Optional[Exception] = dataclasses.field(
         repr=False, default=None)
 
@@ -194,6 +201,7 @@ class FusedGather(PlanNode):
     pad_valid: object = dataclasses.field(repr=False, default=None)
     n_lanes: int = 0
     table_rows: int = 0
+    sliced: bool = False
     est_factor: Optional[float] = None
     error: Optional[Exception] = dataclasses.field(
         repr=False, default=None)
@@ -224,6 +232,7 @@ class FusedRmw(PlanNode):
     n_lanes: int = 0
     table_rows: int = 0
     unsigned: bool = False
+    sliced: bool = False
     error: Optional[Exception] = dataclasses.field(
         repr=False, default=None)
 

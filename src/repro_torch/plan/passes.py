@@ -79,6 +79,9 @@ class LowerContext:
     engine: object = None          # compile-cache probes (peek_cached)
     num_shards: int = 1
     sharded_capable: bool = False
+    # the engine spans a process mesh: a node is mesh-placed iff its table
+    # is a rank's slice (``sliced``), and a replicated table stays local
+    process: bool = False
     replay: Optional[Skeleton] = None
     # run repro_torch.analysis.verify.check_pass after every pass (the
     # test suite turns this on via DX100_PLAN_VERIFY)
@@ -176,15 +179,15 @@ def fuse(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
             roots.append(nodes.FusedGather(
                 nid=ctx.nid(), members=(leaf,), table_id=leaf.table_id,
                 n_lanes=leaf.n_lanes, table_rows=leaf.table_rows,
-                error=leaf.error))
+                sliced=leaf.sliced, error=leaf.error))
             continue
         by_table.setdefault(leaf.table_id, []).append(leaf)
     for tid, ms in by_table.items():
-        roots.append(nodes.FusedGather(
+        roots.append(_refused(nodes.FusedGather(
             nid=ctx.nid(), members=tuple(ms), table_id=tid,
             table=ms[0].table, streams=tuple(m.idx for m in ms),
             n_lanes=sum(m.n_lanes for m in ms),
-            table_rows=ms[0].table_rows))
+            table_rows=ms[0].table_rows, sliced=ms[0].sliced), ctx))
 
     by_op: "OrderedDict[tuple, list]" = OrderedDict()
     for leaf in plan.leaves:
@@ -194,14 +197,16 @@ def fuse(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
             roots.append(nodes.FusedRmw(
                 nid=ctx.nid(), members=(leaf,), table_id=leaf.table_id,
                 op=leaf.op, n_lanes=leaf.n_lanes,
-                table_rows=leaf.table_rows, error=leaf.error))
+                table_rows=leaf.table_rows, sliced=leaf.sliced,
+                error=leaf.error))
             continue
         by_op.setdefault((leaf.table_id, leaf.op), []).append(leaf)
     for (tid, op), ms in by_op.items():
         node = nodes.FusedRmw(
             nid=ctx.nid(), members=tuple(ms), table_id=tid, op=op,
             table=ms[0].table, n_lanes=sum(m.n_lanes for m in ms),
-            table_rows=ms[0].table_rows, unsigned=ms[0].unsigned)
+            table_rows=ms[0].table_rows, unsigned=ms[0].unsigned,
+            sliced=ms[0].sliced)
         if node.error is None:
             try:
                 idx = ms[0].idx if len(ms) == 1 else torch.cat(
@@ -219,13 +224,22 @@ def fuse(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
                                            cond=cond)
             except Exception as e:       # incompatible member payloads
                 node = dataclasses.replace(node, error=e)
-        roots.append(node)
+        roots.append(_refused(node, ctx))
     plan = dataclasses.replace(plan, roots=tuple(roots))
     return _delta(plan, "fuse", before,
                   [f"{sum(len(v) for v in by_table.values())} gather "
                    f"streams -> {len(by_table)} fused tables",
                    f"{sum(len(v) for v in by_op.values())} rmw streams "
                    f"-> {len(by_op)} fused (table, op) groups"])
+
+
+def _refused(node, ctx: LowerContext):
+    """``node``, failed when the cost model forces a local path on a
+    rank's table slice (``CostModel.local_refusal``): refused before any
+    decision is made, so replayed skeletons stay aligned."""
+    err = None if ctx.cost is None or node.error is not None \
+        else ctx.cost.local_refusal(node)
+    return node if err is None else dataclasses.replace(node, error=err)
 
 
 def coalesce(plan: nodes.Plan, ctx: LowerContext) -> nodes.Plan:
@@ -395,15 +409,22 @@ def window_signature(leaves, max_batch: int, backend: str) -> tuple:
                                       for k, v in leaf.src_ids.items()))))
         elif isinstance(leaf, nodes.GatherNode):
             rows.append(("g", cid(leaf.table_id), leaf.n_lanes,
-                         dtype_str(leaf.idx.dtype),
-                         tuple(leaf.table.shape),
+                         dtype_str(leaf.idx.dtype), _extent(leaf),
                          dtype_str(leaf.table.dtype)))
         elif isinstance(leaf, nodes.RmwNode):
             rows.append(("r", cid(leaf.table_id), leaf.op, leaf.n_lanes,
-                         leaf.cond is not None, tuple(leaf.table.shape),
+                         leaf.cond is not None, _extent(leaf),
                          dtype_str(leaf.table.dtype), leaf.unsigned,
                          tuple(getattr(leaf.values, "shape", ()))))
     return (tuple(rows), int(max_batch), backend)
+
+
+def _extent(leaf) -> tuple:
+    """A leaf's table shape with the *whole* table's rows (a rank's
+    slice differs by a row between ranks; the plan must not), marked
+    when the table is a slice."""
+    shape = (leaf.table_rows,) + tuple(leaf.table.shape[1:])
+    return shape + ("sliced",) if leaf.sliced else shape
 
 
 def skeleton_of(plan: nodes.Plan) -> Skeleton:

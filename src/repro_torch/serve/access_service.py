@@ -36,8 +36,17 @@ Open-loop serving adds three pieces:
 
 The service clock is microseconds from ``time.perf_counter``; replace
 ``svc.clock`` to drive the service on a virtual clock. The service runs on
-one device (``device=None`` means CUDA), or over a mesh of logical shards
-(``mesh=``, ``distributed.ShardedEngine``).
+one device (``device=None`` means CUDA), or over a mesh (``mesh=``,
+``distributed.ShardedEngine``): logical shards on one device, or a
+``distributed.ProcessMesh``, one service per rank.
+
+Over a process mesh every rank must cut the same windows: the count
+triggers (``auto_flush``, ``FixedWindowController``'s threshold) are
+deterministic, but the wall clock is not, so a controller (whose deadline
+and measured flush overhead read the clock) needs ``clock=`` a clock the
+caller drives identically on every rank, and each window's clock reading
+is held equal across ranks by the window's agreement (a rank that
+differs raises ``core.PlanDivergence`` on every rank).
 """
 from __future__ import annotations
 
@@ -240,10 +249,15 @@ class AccessService:
     ``device``: where a service built here runs its engine (``None`` =
     CUDA, ``core.device``); a prebuilt ``scheduler`` brings its own.
     ``mesh``: None for the single-device engine, or an int shard count /
-    ``distributed.Mesh`` to back the service with a
-    ``distributed.ShardedEngine`` — fused gathers and RMWs then span the
-    mesh's logical shards, and each ``FlushReport`` carries the per-shard
-    exchange stats (``shard_stats``).
+    ``distributed.Mesh`` / ``distributed.ProcessMesh`` to back the service
+    with a ``distributed.ShardedEngine`` — fused gathers and RMWs then
+    span the mesh's shards, and each ``FlushReport`` carries the
+    per-shard exchange stats (``shard_stats``). Over a ``ProcessMesh``
+    each rank builds its own service and submits the same work (a
+    row-sharded table as the rank's slice with ``n_rows``); a controller
+    then needs a ``clock`` that reads the same on every rank.
+    ``use_kernel``: a service built here runs the fused nodes' row-table
+    kernels (``Engine(use_kernel=True)``).
     """
 
     def __init__(self, scheduler: Optional[Scheduler] = None, *,
@@ -251,19 +265,32 @@ class AccessService:
                  max_batch: int = 32, auto_flush: int = 16, mesh=None,
                  controller: Optional[FlushController] = None,
                  telemetry: Optional[Telemetry] = None,
-                 clock: Optional[Callable[[], float]] = None, device=None):
+                 clock: Optional[Callable[[], float]] = None, device=None,
+                 use_kernel: bool = False):
         if scheduler is None:
             if mesh is not None:
                 from repro_torch.distributed import ShardedEngine
                 engine = ShardedEngine(mesh, tile_size=tile_size,
-                                       optimize=optimize, device=device)
+                                       optimize=optimize,
+                                       use_kernel=use_kernel, device=device)
             else:
                 engine = Engine(tile_size=tile_size, optimize=optimize,
-                                device=device)
+                                use_kernel=use_kernel, device=device)
             scheduler = Scheduler(engine=engine, max_batch=max_batch)
         elif mesh is not None:
             raise ValueError("pass either a prebuilt scheduler or a mesh, "
                              "not both")
+        if getattr(scheduler, "process", False) and controller is not None \
+                and clock is None:
+            raise ValueError(
+                "over a ProcessMesh every input that cuts a window must be "
+                "the same on every rank (ROADMAP A14b): a flush controller "
+                "reads the wall clock for its deadline and flush overhead, "
+                "so pass clock= a clock driven identically on every rank, "
+                "or cut windows by count (auto_flush) or explicitly")
+        # the clock's reading is part of a window's cut when the caller
+        # drives it (over a process mesh it is agreed across ranks)
+        self._own_clock = clock is not None
         self.scheduler = scheduler
         self.auto_flush = int(auto_flush)
         self.controller = controller
@@ -295,18 +322,23 @@ class AccessService:
         self._maybe_flush()
         return t
 
-    def submit_gather(self, table, idx, *, tenant: str = "core0") -> Ticket:
-        t = self.scheduler.submit_gather(table, idx, tenant=tenant)
+    def submit_gather(self, table, idx, *, tenant: str = "core0",
+                      n_rows: Optional[int] = None) -> Ticket:
+        """Bulk gather fast path (see ``Scheduler.submit_gather``; over a
+        process mesh ``n_rows`` marks ``table`` as the rank's slice)."""
+        t = self.scheduler.submit_gather(table, idx, tenant=tenant,
+                                         n_rows=n_rows)
         self._note_submit(t)
         self._maybe_flush()
         return t
 
     def submit_rmw(self, table, idx, values, *, op: str = "ADD",
-                   cond=None, tenant: str = "core0") -> Ticket:
+                   cond=None, tenant: str = "core0",
+                   n_rows: Optional[int] = None) -> Ticket:
         """Bulk RMW fast path (see ``Scheduler.submit_rmw``): the ticket
         resolves to the table's end-of-window state."""
         t = self.scheduler.submit_rmw(table, idx, values, op=op, cond=cond,
-                                      tenant=tenant)
+                                      tenant=tenant, n_rows=n_rows)
         self._note_submit(t)
         self._maybe_flush()
         return t
@@ -343,8 +375,9 @@ class AccessService:
         """
         pending = self.scheduler.pending
         t0 = self.clock()
-        handle = self.scheduler.flush_async(inflight_ok=inflight_ok,
-                                            drain_limit=drain_limit)
+        handle = self.scheduler.flush_async(
+            inflight_ok=inflight_ok, drain_limit=drain_limit,
+            cut=t0 if self._own_clock else None)
         t1 = self.clock()
         self.last_report = handle.report
         self.telemetry.on_flush(handle.report.order, t0, max(t1, t0),
@@ -353,7 +386,7 @@ class AccessService:
         if handle.report.shard_stats:
             # bound method, not its result: folding the exchange stats
             # copies device counts to the host, which summary() defers
-            self.telemetry.on_exchange(handle.report.exchange_summary)
+            self.telemetry.on_exchange(handle.report.exchange_record)
         if self.controller is not None:
             self.controller.observe_flush(
                 len(handle.report.order), t1 - t0, handle.report, t1,
@@ -435,12 +468,14 @@ class CoreClient:
     def submit(self, program, env, regs=None) -> Ticket:
         return self.service.submit(program, env, regs, tenant=self.tenant)
 
-    def submit_gather(self, table, idx) -> Ticket:
-        return self.service.submit_gather(table, idx, tenant=self.tenant)
+    def submit_gather(self, table, idx, *, n_rows=None) -> Ticket:
+        return self.service.submit_gather(table, idx, tenant=self.tenant,
+                                          n_rows=n_rows)
 
-    def submit_rmw(self, table, idx, values, *, op="ADD", cond=None) -> Ticket:
+    def submit_rmw(self, table, idx, values, *, op="ADD", cond=None,
+                   n_rows=None) -> Ticket:
         return self.service.submit_rmw(table, idx, values, op=op, cond=cond,
-                                       tenant=self.tenant)
+                                       tenant=self.tenant, n_rows=n_rows)
 
     def poll(self, ticket: Ticket):
         return self.service.poll(ticket)

@@ -72,6 +72,10 @@ class KvPoolServer:
         if service is None:
             from repro_torch.serve.access_service import AccessService
             service = AccessService(auto_flush=0)
+        if getattr(service.scheduler, "process", False):
+            raise NotImplementedError(
+                "KvPoolServer over a ProcessMesh is ROADMAP A14e: its pool "
+                "is not sliced by rank")
         self.service = service
         self.device = service.scheduler.engine.device
         self.page_size = int(page_size)

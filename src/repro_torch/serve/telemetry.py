@@ -163,8 +163,9 @@ class Telemetry:
         """Folded mesh-exchange record across every sharded window seen
         so far: post-dedup lanes, the fraction served without fabric
         traffic, bytes on the wire (and the codec's compression ratio
-        over raw int32 lanes), and the mean route/exec overlap. None
-        until a sharded window reports. Draining the queued thunks may
+        over raw int32 lanes), and the mean route/exec overlap; over a
+        process mesh also this rank's ``transport`` and the collectives
+        its sharded nodes issued. None until a sharded window reports. Draining the queued thunks may
         sync the device — call off the flush hot path."""
         thunks, self._exchange_thunks = self._exchange_thunks, []
         for thunk in thunks:
@@ -179,6 +180,10 @@ class Telemetry:
                     "idx_bytes": 0, "idx_bytes_raw": 0.0,
                     "overlap_sum": 0.0, "overlap_n": 0}
             acc["windows"] += 1
+            if "collectives" in s:       # a process mesh's rank
+                acc["collectives"] = acc.get("collectives", 0) + \
+                    s["collectives"]
+                acc["transport"] = s["transport"]
             acc["nodes"] += s["nodes"]
             acc["lanes"] += s["lanes"]
             acc["local_lanes"] += s["local_fraction"] * s["lanes"]
@@ -191,7 +196,9 @@ class Telemetry:
         acc = self._exchange_acc
         if acc is None:
             return None
+        rank = {k: acc[k] for k in ("transport", "collectives") if k in acc}
         return {
+            **rank,
             "windows": acc["windows"],
             "nodes": acc["nodes"],
             "lanes": acc["lanes"],

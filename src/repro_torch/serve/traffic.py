@@ -395,6 +395,11 @@ def replay_trace(trace: Trace, service, *,
     scratchpad shapes always agree with the executor.
     """
     sched = service.scheduler
+    if getattr(sched, "process", False):
+        raise NotImplementedError(
+            "replay_trace over a ProcessMesh is ROADMAP A14e: its cuts "
+            "follow wall-measured flush times, which differ between ranks, "
+            "and its tables are not sliced by rank")
     if tile_size is None:
         tile_size = sched.engine.tile_size
     ctl = service.controller

@@ -281,7 +281,7 @@ def check_mixed_flush_parity(case, *, tile_size: int = 256,
                              scheduler: "Scheduler | None" = None,
                              tenants: Sequence[str] = ("a", "b", "c"),
                              rtol: float = 1e-4, atol: float = 1e-5,
-                             device="cuda"):
+                             device="cuda", mesh=None):
     """Mixed-window parity: programs + raw gathers + RMWs against shared
     tables in ONE flush, through the full plan pipeline, vs NumPy.
 
@@ -292,10 +292,29 @@ def check_mixed_flush_parity(case, *, tile_size: int = 256,
     (one op per table, order-free mod 2^32), allclose for float ADD; each
     program matches an independent ``OracleEngine`` run. Returns
     ``(checked, report)``.
+
+    ``mesh``, a ``distributed.ProcessMesh``, runs the window SPMD over a
+    ``ShardedEngine`` on it (one scheduler per rank): every gather and RMW
+    table is submitted as the rank's slice, each gather ticket is held
+    whole and each RMW ticket as the rank's slice, and the verdict is
+    all-reduced — a mismatch on any rank raises on every rank.
     """
-    sched = scheduler if scheduler is not None else Scheduler(
-        engine=Engine(tile_size=tile_size, optimize=True, device=device))
+    process = mesh is not None
+    if process:
+        from repro_torch.distributed import ShardedEngine
+        sched = scheduler if scheduler is not None else Scheduler(
+            engine=ShardedEngine(mesh, tile_size=tile_size, optimize=True))
+    else:
+        sched = scheduler if scheduler is not None else Scheduler(
+            engine=Engine(tile_size=tile_size, optimize=True, device=device))
     iota = np.arange(tile_size, dtype=np.int32)
+    eng = sched.engine
+    # each table's submission: over a process mesh one slice object per
+    # table (so a table's submissions still fuse), else the table
+    rows = {name: eng.rank_rows(len(t)) if process else (0, len(t))
+            for name, t in case.tables.items()}
+    part = {name: (t[slice(*rows[name])], {"n_rows": len(t)}) if process
+            else (t, {}) for name, t in case.tables.items()}
 
     prog_entries, gather_tickets, rmw_tickets = [], [], {}
     ti = 0
@@ -313,15 +332,47 @@ def check_mixed_flush_parity(case, *, tile_size: int = 256,
                          tenant=tenant())
         prog_entries.append((t, prog, env, regs))
     for name, idx in case.gathers:
-        t = sched.submit_gather(case.tables[name], idx, tenant=tenant())
+        tab, kw = part[name]
+        t = sched.submit_gather(tab, idx, tenant=tenant(), **kw)
         gather_tickets.append((t, name, idx))
     for name, idx, vals, cond in case.rmws:
-        t = sched.submit_rmw(case.tables[name], idx, vals,
-                             op=case.table_ops[name], cond=cond,
-                             tenant=tenant())
+        tab, kw = part[name]
+        t = sched.submit_rmw(tab, idx, vals, op=case.table_ops[name],
+                             cond=cond, tenant=tenant(), **kw)
         rmw_tickets.setdefault(name, []).append(t)
 
     report = sched.flush()
+    if not process:
+        return _check_mixed(case, sched, iota, tile_size, gather_tickets,
+                            rmw_tickets, prog_entries, rows, rtol,
+                            atol), report
+    failure, checked = None, 0
+    try:
+        checked = _check_mixed(case, sched, iota, tile_size, gather_tickets,
+                               rmw_tickets, prog_entries, rows, rtol, atol)
+    except ParityError as e:
+        failure = str(e)
+    _process_verdict(mesh, failure, eng.device)
+    return checked, report
+
+
+def _process_verdict(mesh, failure: Optional[str], device) -> None:
+    """All-reduce a process mesh's per-rank verdict: raises
+    ``ParityError`` on every rank when any rank's check failed."""
+    from repro_torch.distributed import all_gather
+    ok = torch.tensor([failure is None], dtype=torch.int32, device=device)
+    verdict = all_gather(ok, mesh).reshape(-1).tolist()
+    if not all(verdict):
+        bad = [i for i, v in enumerate(verdict) if not v]
+        raise ParityError(f"process mesh of {mesh.num_shards}: rank(s) "
+                          f"{bad} diverged"
+                          + (f"; here: {failure}" if failure else ""))
+
+
+def _check_mixed(case, sched, iota, tile_size, gather_tickets, rmw_tickets,
+                 prog_entries, rows, rtol, atol) -> int:
+    """``check_mixed_flush_parity``'s checks of the flushed window; RMW
+    tickets are held as the rows ``rows[name]`` of the expected table."""
     checked = 0
 
     # gathers read the window-initial state; loads clamp
@@ -341,10 +392,12 @@ def check_mixed_flush_parity(case, *, tile_size: int = 256,
             if n2 == name:
                 want = _np_rmw(want, idx, vals, case.table_ops[name],
                                cond=cond)
+        lo, hi = rows[name]
         for t in tickets:
             _assert_match(f"[{case.name} rmw {name}:"
                           f"{case.table_ops[name]}] vs NumPy oracle",
-                          sched.result(t), want, rtol=rtol, atol=atol)
+                          sched.result(t), want[lo:hi], rtol=rtol,
+                          atol=atol)
             checked += 1
 
     # programs: independent per-program ISA-oracle runs
@@ -366,7 +419,7 @@ def check_mixed_flush_parity(case, *, tile_size: int = 256,
                           "vs ISA oracle", gspd[name], ospd[name],
                           rtol=rtol, atol=atol)
             checked += 1
-    return checked, report
+    return checked
 
 
 def default_sharded_cases(seed: int = 0, *, n_rows: int = 257,
@@ -502,7 +555,7 @@ def check_sharded_parity(cases: Sequence | None = None, *,
 def _check_process_parity(cases, mesh, *, rtol: float, atol: float):
     """``check_sharded_parity`` on a ``ProcessMesh``: this rank's share of
     every case against the oracle, then one all-reduced verdict."""
-    from repro_torch.distributed import ShardedEngine, all_gather
+    from repro_torch.distributed import ShardedEngine
     eng = ShardedEngine(mesh)
     m, r = eng.num_shards, eng.rank
     failure = None
@@ -530,20 +583,15 @@ def _check_process_parity(cases, mesh, *, rtol: float, atol: float):
                               **{"rtol": 0, "atol": 0, **tol})
             except ParityError as e:
                 failure = str(e)
-    ok = torch.tensor([failure is None], dtype=torch.int32,
-                      device=eng.device)
-    verdict = all_gather(ok, mesh).reshape(-1).tolist()
-    if not all(verdict):
-        bad = [i for i, v in enumerate(verdict) if not v]
-        raise ParityError(f"process mesh of {m}: rank(s) {bad} diverged"
-                          + (f"; here: {failure}" if failure else ""))
+    _process_verdict(mesh, failure, eng.device)
     return len(cases), [m]
 
 
 def check_app_parity(app_names: Sequence[str] | None = None, *,
                      modes: Sequence[str] = ("eager", "pipelined"),
                      mesh_sizes: Sequence[int] = (),
-                     seeds: Sequence[int] = (0,), device="cuda"):
+                     seeds: Sequence[int] = (0,), device="cuda",
+                     mesh=None):
     """End-to-end app parity: every ``repro_torch.apps`` driver vs its
     sequential NumPy oracle, **bit-exact** (zero tolerance, f32 included —
     the apps are constructed so every float reduction is exact and
@@ -553,9 +601,21 @@ def check_app_parity(app_names: Sequence[str] | None = None, *,
     additionally runs the pipelined driver over a ``ShardedEngine`` of
     each size (logical shards: every size runs). Returns ``(checked,
     ran_mesh_sizes)``.
+
+    ``mesh``, a ``distributed.ProcessMesh``, replaces ``modes`` and
+    ``mesh_sizes``: every rank runs each app's pipelined driver over the
+    mesh (SPMD) and holds what ``run`` returns against the oracle; the
+    verdict is all-reduced.
     """
     from repro_torch.apps import APPS
     names = list(app_names) if app_names else list(APPS)
+    if mesh is not None:
+        return _process_apps(
+            [(f"[app={name} seed={seed} pipelined process mesh]",
+              lambda mod=APPS[name], seed=seed: mod.demo(
+                  seed, mode="pipelined", mesh=mesh),
+              lambda mod=APPS[name], seed=seed: mod.demo_reference(seed))
+             for name in names for seed in seeds], mesh)
     checked, ran = 0, []
     for name in names:
         mod = APPS[name]
@@ -579,11 +639,29 @@ def check_app_parity(app_names: Sequence[str] | None = None, *,
     return checked, ran
 
 
+def _process_apps(runs, mesh):
+    """``(what, run, oracle)`` triples run SPMD on a process mesh; every
+    rank's result is held bit for bit, then the verdict all-reduced.
+    Returns ``(checked, [mesh size])``."""
+    failure = None
+    for what, run, want in runs:
+        try:
+            # a run's own ParityError (kv_serve's growth) comes after its
+            # collectives, so every rank still reaches the verdict
+            got = run()
+            _assert_match(f"{what} vs NumPy oracle", got, want(), rtol=0,
+                          atol=0)
+        except ParityError as e:
+            failure = failure or str(e)
+    _process_verdict(mesh, failure, mesh.device)
+    return len(runs), [mesh.num_shards]
+
+
 def check_kv_parity(*, seeds: Sequence[int] = (0, 1),
                     modes: Sequence[str] = ("eager", "sequential",
                                             "pipelined"),
                     mesh_sizes: Sequence[int] = (),
-                    n_steps: int = 6, device="cuda") -> int:
+                    n_steps: int = 6, device="cuda", mesh=None) -> int:
     """Paged-KV decode-batch parity (``apps.kv_serve``) with the two
     properties the generic app check cannot see:
 
@@ -597,10 +675,27 @@ def check_kv_parity(*, seeds: Sequence[int] = (0, 1),
 
     Every mode and every mesh size is compared bit-exact (rtol=0) against
     the sequential NumPy oracle. Returns the number of comparisons made.
+    ``mesh``, a ``distributed.ProcessMesh``, replaces ``modes`` and
+    ``mesh_sizes``: the pipelined run over it (SPMD, the pool grown
+    mid-flight and re-cut by rank) on every rank, verdict all-reduced.
     """
     from repro_torch.apps import kv_serve
     from repro_torch.serve import AccessService
 
+    if mesh is not None:
+        def run(seed):
+            stats: dict = {}
+            got = kv_serve.run(kv_serve.make_problem(seed), n_steps,
+                               mode="pipelined", mesh=mesh, stats_out=stats)
+            if stats["growths"] == 0:
+                raise ParityError(f"[kv seed={seed} process mesh] pool "
+                                  "never grew mid-flight")
+            return got
+        return _process_apps(
+            [(f"[kv seed={seed} process mesh]", lambda s=seed: run(s),
+              lambda s=seed: kv_serve.reference(kv_serve.make_problem(s),
+                                                n_steps))
+             for seed in seeds], mesh)[0]
     checked = 0
     for seed in seeds:
         prob = kv_serve.make_problem(seed)
@@ -654,16 +749,26 @@ def check_embedding_parity(*, seeds: Sequence[int] = (0, 1),
                            modes: Sequence[str] = ("eager", "sequential",
                                                    "pipelined"),
                            mesh_sizes: Sequence[int] = (),
-                           device="cuda") -> int:
+                           device="cuda", mesh=None) -> int:
     """Embedding-bag lookup/update parity (``apps.embedding_bag``):
     lookup outputs AND the updated table compared bit-exact against the
     NumPy oracle in every mode (and on the mesh), plus a property check
     that ``segment_combine`` matches a naive duplicate-scatter oracle and
     emits unique in-range destinations (the unique-writer invariant the
     RMW backend depends on). Returns the number of comparisons made.
+    ``mesh``, a ``distributed.ProcessMesh``, replaces ``modes`` and
+    ``mesh_sizes`` (and the property check): the pipelined run over it on
+    every rank, verdict all-reduced.
     """
     from repro_torch.apps import embedding_bag
 
+    if mesh is not None:
+        return _process_apps(
+            [(f"[embedding seed={seed} process mesh]",
+              lambda s=seed: embedding_bag.demo(s, mode="pipelined",
+                                                mesh=mesh),
+              lambda s=seed: embedding_bag.demo_reference(s))
+             for seed in seeds], mesh)[0]
     checked = 0
     for seed in seeds:
         want = embedding_bag.demo_reference(seed)

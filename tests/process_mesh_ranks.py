@@ -211,3 +211,244 @@ def fail_on_rank1(rank, world, how):
         import time
         time.sleep(120)
     return rank
+
+
+# ---------------------------------------------------------------------------
+# test_torch_process_service.py: the Scheduler, AccessService and the apps
+# over a process mesh
+# ---------------------------------------------------------------------------
+
+SERVICE_TILE = 256
+TENANTS = ("a", "b", "c")
+
+
+def _numpy(x):
+    from repro_torch.core import interop
+    return interop.to_numpy(x) if isinstance(x, torch.Tensor) \
+        else np.asarray(x)
+
+
+def submit_mixed_slices(sched, case, tile=SERVICE_TILE):
+    """A ``MixedFlushCase`` submitted as ``test_torch_scheduler
+    .submit_mixed`` submits it (programs, gathers, RMWs, tenants
+    rotating), every gather and RMW table as this rank's slice with
+    ``n_rows`` (one slice object per table, so a table's submissions
+    fuse). Returns the tickets and each table's whole row count."""
+    from repro_torch.core import compile_pattern
+    iota = np.arange(tile, dtype=np.int32)
+    turn = iter(range(1, 1 << 30))
+
+    def tenant():
+        return TENANTS[next(turn) % len(TENANTS)]
+
+    part = {}
+    for name, t in case.tables.items():
+        lo, hi = sched.engine.rank_rows(len(t))
+        part[name] = (t[lo:hi], len(t))
+    programs, gathers, rmws = [], [], {}
+    for p, env, n in case.programs:
+        prog, _ = compile_pattern(p, tile_size=tile)
+        regs = {"tile_base": 0, "N": n, "tile_end": n}
+        programs.append(sched.submit(prog, {**env, "__iota__": iota}, regs,
+                                     tenant=tenant()))
+    for name, idx in case.gathers:
+        tab, n = part[name]
+        gathers.append(sched.submit_gather(tab, idx, tenant=tenant(),
+                                           n_rows=n))
+    for name, idx, vals, cond in case.rmws:
+        tab, n = part[name]
+        rmws.setdefault(name, []).append(sched.submit_rmw(
+            tab, idx, vals, op=case.table_ops[name], cond=cond,
+            tenant=tenant(), n_rows=n))
+    return (programs, gathers, rmws), {k: n for k, (_, n) in part.items()}
+
+
+def collect_whole(sched, tickets, n_rows, mesh):
+    """Every ticket's result as NumPy, keyed as ``test_torch_scheduler
+    .collect`` keys them; an RMW's slice put back together whole."""
+    from repro_torch.distributed import gather_blocks
+    programs, gathers, rmws = tickets
+    out = {("g", k): _numpy(sched.result(t)) for k, t in enumerate(gathers)}
+    for name, ts in rmws.items():
+        for k, t in enumerate(ts):
+            out[("r", name, k)] = _numpy(gather_blocks(
+                sched.result(t), mesh, n_rows[name]))
+    for k, t in enumerate(programs):
+        env, spd = sched.result(t)
+        out[("p", k)] = ({n: _numpy(v) for n, v in env.items()},
+                         {n: _numpy(v) for n, v in spd.items()})
+    return out
+
+
+def _mixed_window(mesh, seed):
+    """One mixed window over the mesh: its results, explain() text and
+    skeleton digest, and the harness's own verdict on it."""
+    from repro_torch.core import Scheduler
+    from repro_torch.core.scheduler import _digest
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.plan import skeleton_of
+    from repro_torch.testing import fuzzer
+    case = fuzzer.generate_mixed_case(seed)
+    sched = Scheduler(engine=ShardedEngine(mesh, tile_size=SERVICE_TILE))
+    tickets, n_rows = submit_mixed_slices(sched, case)
+    ex = sched.explain()
+    report = sched.flush()
+    return {"results": collect_whole(sched, tickets, n_rows, mesh),
+            "explain": ex.render(diagnostics=False),
+            "codes": [d.code for d in ex.plan.diagnostics],
+            "skeleton": _digest(skeleton_of(ex.plan)),
+            "same_plan": report.plan is ex.plan,
+            "sharded": sum(n.kind == "sharded" for n in report.plan.roots),
+            "agreements": sched.stats["agreements"]}
+
+
+def _batch_split(mesh, rank):
+    """A batched group of 5 programs (a block per rank, the short last
+    one padded) against the same group's ``run_batch`` on one device;
+    each rank's ``run_lanes`` calls record how many lanes it ran."""
+    from repro_torch.core import Engine, Scheduler, compile_pattern, interop
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.testing import fuzzer
+    case = fuzzer.generate_mixed_case(1)
+    p, env, n = case.programs[0]
+    prog, _ = compile_pattern(p, tile_size=SERVICE_TILE)
+    iota = np.arange(SERVICE_TILE, dtype=np.int32)
+    rng = np.random.default_rng(3)
+    envs = []
+    for _ in range(5):
+        e = {k: (rng.permutation(v) if v.ndim else v)
+             for k, v in env.items()}
+        envs.append({**e, "__iota__": iota})
+    regs = {"tile_base": 0, "N": n, "tile_end": n}
+    eng = ShardedEngine(mesh, tile_size=SERVICE_TILE)
+    ran = []
+    run_lanes = eng.run_lanes
+
+    def counted(program, lane_envs, *a, **kw):
+        ran.append(len(lane_envs))
+        return run_lanes(program, lane_envs, *a, **kw)
+    eng.run_lanes = counted
+    sched = Scheduler(engine=eng)
+    ts = [sched.submit(prog, e, regs, tenant=f"t{i}")
+          for i, e in enumerate(envs)]
+    report = sched.flush()
+    got = [sched.result(t) for t in ts]
+    one = Engine(tile_size=SERVICE_TILE, device="cpu")
+    want = one.executable(prog, batch=5).run_batch(
+        [{k: interop.to_tensor(v, device="cpu") for k, v in e.items()}
+         for e in envs], [regs] * 5)
+    same = all(
+        set(g[0]) == set(w[0]) and all(
+            np.array_equal(_numpy(g[0][k]), _numpy(w[0][k])) for k in w[0])
+        and all(np.array_equal(_numpy(g[1][k]), _numpy(w[1][k]))
+                for k in w[1]) for g, w in zip(got, want))
+    return {"same": same, "lanes_run": ran,
+            "vmapped": [g.vmapped for g in report.groups]}
+
+
+def _refusals(mesh, rank):
+    """What a process mesh refuses, on every rank alike: a forced local
+    path on a slice, a wrong slice on one rank, a controller on the wall
+    clock."""
+    from repro_torch.core import Scheduler
+    from repro_torch.distributed import ShardedEngine
+    from repro_torch.plan import CostModel
+    from repro_torch.serve import AccessService, FixedWindowController
+    table = np.arange(40, dtype=np.float32).reshape(20, 2)
+    idx = np.array([0, 19, 7, 7, 12], np.int32)
+    out = {}
+    eng = ShardedEngine(mesh)
+    lo, hi = eng.rank_rows(20)
+    for knob in (dict(force_gather="bulk"), dict(force_gather="eager"),
+                 dict(force_rmw="bulk")):
+        sched = Scheduler(engine=eng, cost_model=CostModel(**knob))
+        if "force_rmw" in knob:
+            t = sched.submit_rmw(table[lo:hi], idx, np.ones((5, 2),
+                                 np.float32), n_rows=20)
+        else:
+            t = sched.submit_gather(table[lo:hi], idx, n_rows=20)
+        sched.flush()
+        try:
+            sched.result(t)
+            out[str(knob)] = "accepted"
+        except ValueError as e:
+            out[str(knob)] = str(e)
+    # rank 1 hands in the whole table as if it were its slice: refused on
+    # every rank, and the window's other submission still runs
+    sched = Scheduler(engine=eng)
+    mine = table if rank == 1 else table[lo:hi]
+    bad = sched.submit_gather(mine, idx, n_rows=20)
+    good = sched.submit_rmw(table[lo:hi].copy(), idx,
+                            np.ones((5, 2), np.float32), n_rows=20)
+    sched.flush()
+    try:
+        sched.result(bad)
+        out["wrong_slice"] = "accepted"
+    except ValueError as e:
+        out["wrong_slice"] = str(e)
+    out["wrong_slice_other"] = _numpy(sched.result(good))
+    try:
+        AccessService(mesh=mesh, controller=FixedWindowController(4))
+        out["wall_clock"] = "accepted"
+    except ValueError as e:
+        out["wall_clock"] = str(e)
+    svc = AccessService(mesh=mesh, controller=FixedWindowController(2),
+                        clock=lambda: 0.0)
+    t = svc.submit_gather(table[lo:hi], idx, n_rows=20)
+    svc.submit_gather(table[lo:hi], idx[:2], n_rows=20)  # cuts at 2
+    out["virtual_clock"] = _numpy(svc.wait(t))
+    return out
+
+
+def _diverge(mesh, rank):
+    """Rank 1 submits a longer stream than the others: every rank raises
+    ``PlanDivergence`` at the flush, none hangs."""
+    import time
+    from repro_torch.core import PlanDivergence, Scheduler
+    from repro_torch.distributed import ShardedEngine
+    eng = ShardedEngine(mesh)
+    lo, hi = eng.rank_rows(30)
+    table = np.arange(30, dtype=np.int32)
+    sched = Scheduler(engine=eng)
+    sched.submit_gather(table[lo:hi], np.arange(6 + (rank == 1),
+                                                dtype=np.int32), n_rows=30)
+    t0 = time.perf_counter()
+    try:
+        sched.flush()
+        return {"raised": None, "seconds": time.perf_counter() - t0}
+    except PlanDivergence as e:
+        return {"raised": str(e), "seconds": time.perf_counter() - t0,
+                "pending": sched.pending}
+
+
+def service_main(rank, world, out_dir, mixed_seeds, app_seeds):
+    """Rank side of ``test_torch_process_service.py``: mixed windows,
+    the five apps, the harness's process-mesh checks, the batch split,
+    the refusals and the diverging-stream probe (last)."""
+    import time
+    from repro_torch.apps import APPS
+    from repro_torch.distributed import process_mesh
+    from repro_torch.testing import fuzzer, harness
+    mesh = process_mesh(device="cpu")
+    t0 = time.perf_counter()
+    out = {"rank": rank, "world": world}
+    out["mixed"] = {s: _mixed_window(mesh, s) for s in mixed_seeds}
+    out["apps"] = {(name, s): np.asarray(mod.demo(s, mode="pipelined",
+                                                  mesh=mesh))
+                   for name, mod in APPS.items() for s in app_seeds}
+    # the strictly-coupled baseline drops the compute phase's handles
+    out["sequential"] = {name: np.asarray(APPS[name].demo(
+        0, mode="sequential", mesh=mesh)) for name in ("bfs", "kv_serve")}
+    out["harness"] = {
+        "mixed": [harness.check_mixed_flush_parity(
+            fuzzer.generate_mixed_case(s), tile_size=SERVICE_TILE,
+            mesh=mesh)[0] for s in (0, 7)],
+        "apps": harness.check_app_parity(mesh=mesh, seeds=(0,)),
+        "kv": harness.check_kv_parity(mesh=mesh, seeds=(0,)),
+        "embedding": harness.check_embedding_parity(mesh=mesh, seeds=(0,))}
+    out["batch"] = _batch_split(mesh, rank)
+    out["refusals"] = _refusals(mesh, rank)
+    out["diverge"] = _diverge(mesh, rank)
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    return True

@@ -33,6 +33,7 @@ import torch
 
 import process_mesh_ranks as pr
 from repro_torch.core import Scheduler
+from repro_torch.plan import CostModel
 from repro_torch.distributed import (ProcessMesh, ShardedEngine,
                                      process_mesh, shard_row_ranges)
 from repro_torch.distributed.spawn import RankFailure, run_ranks
@@ -309,13 +310,26 @@ def _unjoined_mesh(world=2):
 
 
 def test_scheduler_and_service_refuse_a_process_mesh():
+    """A Scheduler and an AccessService build over a process mesh (its
+    windows are agreed across ranks, ROADMAP A14b); what a process mesh
+    still refuses is a local path forced on a rank's table slice, which
+    the lowering turns into a failed node naming the slice."""
     eng = ShardedEngine(_unjoined_mesh(), device="cpu")
     assert eng.transport == "gloo" and eng.rank_rows(10) == (0, 5)
     assert eng.rank_lanes(7) == (0, 4)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        Scheduler(engine=eng)
-    with pytest.raises(NotImplementedError, match="A14b"):
-        AccessService(mesh=_unjoined_mesh(), device="cpu")
+    sched = Scheduler(engine=eng)
+    assert sched.process and sched.engine is eng
+    svc = AccessService(mesh=_unjoined_mesh(), device="cpu")
+    assert svc.scheduler.process and svc.scheduler.engine.rank == 0
+    forced = Scheduler(engine=eng, cost_model=CostModel(force_gather="bulk"))
+    table = np.zeros((5, 2), np.float32)         # rank 0's rows of 10
+    forced.submit_gather(table, np.arange(3), n_rows=10)
+    (node,) = forced.explain().plan.roots
+    assert isinstance(node.error, ValueError)
+    assert "slice" in str(node.error) and node.sliced
+    assert "slice" in str(CostModel(force_gather="eager")
+                          .local_refusal(node))
+    assert CostModel(force_rmw="bulk").local_refusal(node) is None
     with pytest.raises(ValueError, match="process mesh's device"):
         ShardedEngine(_unjoined_mesh(), device="meta")
 
