@@ -198,6 +198,26 @@ the script exits non-zero without its result line:
               the slowest rank's warm times beside phase 8's pipelined and
               phase 11's 4-shard times, collectives and agreements per
               window, B1/B2 per rank, peak memory per rank.
+ 15. serving  ``replay_trace`` and ``KvPoolServer`` over a ``ProcessMesh``
+              in phase 13's groups, through ``AccessService(mesh=
+              ProcessMesh, use_kernel=True)``. (a) Phase 9b's trace with
+              the adaptive controller on a ``VirtualClock`` and
+              wall-measured flushes (each window's duration agreed: the
+              slowest rank's), the hottest tenant capped at 2 pending:
+              each rank cuts every table, the 256 MiB pool included, to
+              its rows on its card; every rank's window log equal; every
+              ticket checked on every rank as in phase 9b (gathers whole,
+              RMWs the rank's rows). (b) Phase 9c's KV pool: each rank
+              holds its rows of the pool, re-cut at every growth; every
+              history bit for bit the NumPy model's on every rank, each
+              rank's final slice the model pool's rows, the growths the
+              model's. B1/B2 per rank those of the plans' sharded 2-D
+              nodes in which it serves rows. The gloo groups cut depth
+              (``PV_GLOO_CUTS``: the pool's decode steps). Per group: the
+              slowest rank's replay wall, virtual p50/p99 and ms per
+              ``decode_batch`` beside phases 9b and 9c, peak and pool
+              bytes per rank, rows moved per growth, collectives and
+              agreements per window, B1/B2 per rank.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -222,7 +242,9 @@ replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
 ``train_launches`` phase 12, ``process_mesh_launches`` phase 13's
 checked calls per group, summed over its ranks,
 ``process_service_launches`` phase 14's checked window and apps per
-group, one count per rank) and {"ok": true, "device": {...}}.
+group, one count per rank, ``process_serving_launches`` phase 15's
+replay and KV pool per group, one count per rank) and {"ok": true,
+"device": {...}}.
 """
 from __future__ import annotations
 
@@ -1451,16 +1473,23 @@ def profile_app(dev, name, fn):
     t0 = time.perf_counter()
     peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
         if dev.type == "cuda" else 0.0
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == DeviceType.CUDA]
-    busy = sum(_device_us(e) for e in kernels) / 1e3
-    syncs = sum(e.count for e in events if e.key in SYNC_CALLS)
-    launches = sum(e.count for e in events if e.key == "cudaLaunchKernel")
+    # count and device time per name from the raw events: key_averages()
+    # builds the whole operator tree in Python, which takes minutes for a
+    # prefill of ~150,000 launches; the names counted here do not nest
+    count, device_us = {}, {}
+    for e in prof.profiler.kineto_results.events():
+        key = e.name()
+        count[key] = count.get(key, 0) + 1
+        if e.device_type() == DeviceType.CUDA:
+            device_us[key] = device_us.get(key, 0.0) + e.duration_ns() / 1e3
+    busy = sum(device_us.values()) / 1e3
+    syncs = sum(count.get(k, 0) for k in SYNC_CALLS)
+    launches = count.get("cudaLaunchKernel", 0)
     copies = {}
     for way in ("HtoD", "DtoH"):
-        evs = [e for e in kernels if e.key.startswith(f"Memcpy {way}")]
-        copies[way] = (sum(e.count for e in evs),
-                       sum(_device_us(e) for e in evs) / 1e3)
+        keys = [k for k in device_us if k.startswith(f"Memcpy {way}")]
+        copies[way] = (sum(count[k] for k in keys),
+                       sum(device_us[k] for k in keys) / 1e3)
     log(f"profile app {name}: {ms:.3f} ms wall under the profiler, device "
         f"{busy:.3f} ms ({100 * busy / ms:.1f}% busy), {syncs} host syncs, "
         f"{launches} kernel launches; copies host->device "
@@ -1468,9 +1497,9 @@ def profile_app(dev, name, fn):
         f"{copies['DtoH'][0]} ({copies['DtoH'][1]:.3f} ms); peak "
         f"{peak:.2f} GiB allocated; the profiler's own processing "
         f"{time.perf_counter() - t0:.1f} s")
-    for e in sorted(kernels, key=_device_us, reverse=True)[:5]:
-        log(f"  top kernel {_device_us(e) / 1e3:9.3f} ms  "
-            f"x{e.count:<5d} {e.key[:70]}")
+    for k in sorted(device_us, key=device_us.get, reverse=True)[:5]:
+        log(f"  top kernel {device_us[k] / 1e3:9.3f} ms  "
+            f"x{count[k]:<5d} {k[:70]}")
     return launches, busy / ms
 
 
@@ -1641,7 +1670,7 @@ def expected_replay_launches(res, ids_2d):
     return {"row_table_gather": b1, "row_table_rmw": b2}
 
 
-def check_replay(dev, trace, host, svc, res, k0):
+def check_replay(dev, trace, host, svc, res, k0, rank_rows=None):
     """Every ticket of the replay: gathers bit for bit the submit-time
     NumPy table (OOB clamped); RMWs bit for bit a lane-by-lane NumPy
     replay of their window's ``FlushReport.order`` from the original
@@ -1649,11 +1678,17 @@ def check_replay(dev, trace, host, svc, res, k0):
     other row unchanged); programs against the same compiled program on
     the port's plain engine (integers bit for bit, floats within
     rtol=1e-4/atol=1e-5: their float RMWs sum with atomics); rejected
-    tickets raise. Returns the number of tickets checked."""
+    tickets raise. Over a process mesh (``rank_rows``, the engine's) an
+    RMW ticket is the rank's rows ``rank_rows(n)`` of its table, ``k0``
+    the rank's rows of the original pool. Returns the number of tickets
+    checked."""
     import numpy as np
     import torch
     from repro_torch.core import Engine, compile_pattern, interop
     from repro_torch.core.scheduler import QueueFullError
+    if rank_rows is None:
+        def rank_rows(n):
+            return 0, n
     sched = svc.scheduler
     ev_of = {t.tid: ev for ev, t in res.tickets}
     plain = Engine(tile_size=TILE, device=dev)
@@ -1693,8 +1728,11 @@ def check_replay(dev, trace, host, svc, res, k0):
                 checked += 1
                 continue                 # the window's one end state
             seen[key] = got.data_ptr()
+            lo, hi = rank_rows(host[ev.table].shape[0])
             if ev.table == "K0":
                 rows, want = want_rmw[key]
+                mine = (rows >= lo) & (rows < hi)
+                rows, want = rows[mine] - lo, want[mine]
                 rows_d = torch.as_tensor(rows, device=dev).long()
                 changed = (got != k0).any(dim=1)
                 changed[rows_d] = False
@@ -1703,7 +1741,7 @@ def check_replay(dev, trace, host, svc, res, k0):
                     raise AssertionError(f"replay window {key[0]}: the KV "
                                          "pool is not the NumPy replay's")
             else:
-                want = want_rmw[key]
+                want = want_rmw[key][lo:hi]
                 if not np.array_equal(interop.to_numpy(got, want.dtype),
                                       want):
                     raise AssertionError(f"replay window {key[0]} RMW "
@@ -1733,6 +1771,10 @@ def check_replay(dev, trace, host, svc, res, k0):
             continue
         raise AssertionError(f"rejected ticket {t} did not raise")
     return checked
+
+
+#: phases 9b and 9c's wall times, for phase 15 to print beside its own
+SERVING_RESULTS: dict = {}
 
 
 def phase_replay(dev):
@@ -1781,6 +1823,9 @@ def phase_replay(dev):
         f"virtual p50 {summ['p50_us']:.1f} us p99 {summ['p99_us']:.1f} us, "
         f"{summ['throughput_per_s']:.1f} tickets/s, makespan "
         f"{res.makespan_us:.0f} us; peak {peak:.2f} GiB allocated")
+    SERVING_RESULTS["replay"] = {"ms": ms, "p50": summ["p50_us"],
+                                 "p99": summ["p99_us"],
+                                 "windows": res.n_flushes}
     log(f"phase 9b launches {launches}; the plans call for {want}")
     if launches != want or min(launches.values()) < 1:
         raise AssertionError(f"replay launches {launches} != {want}")
@@ -1822,12 +1867,13 @@ class KvPoolModel:
 
     def __init__(self, page_size, growth_pages, init_pages):
         self.p, self.growth = page_size, growth_pages
-        self.cap, self.head = init_pages, 0
+        self.cap, self.head, self.growths = init_pages, 0, 0
         self.pages, self.rows = {}, {}
 
     def alloc(self, n):
         pages = list(range(self.head, self.head + n))
         self.head += n
+        self.growths += self.cap < self.head
         while self.cap < self.head:
             self.cap += self.growth
         return pages
@@ -1908,6 +1954,7 @@ def phase_kvpool(dev, seed: int):
     launches = {"row_table_gather": gk.launches,
                 "row_table_rmw": sk.launches}
     st = srv.stats()
+    SERVING_RESULTS["kvpool"] = {"ms": step_ms, "growths": st["growths"]}
     if not np.array_equal(srv.pool.cpu().numpy(), model.pool(w)):
         raise AssertionError("kv pool: the final pool is not the NumPy "
                              "model's")
@@ -3034,6 +3081,28 @@ PS_GLOO_CUTS = {"spmv_cg": {"iters": 1}, "spmv_block": {"iters": 1},
 PS_2D = ("spmv_block", "embedding_bag", "kv_serve")
 
 
+def served_launches(report, rank, is_2d) -> dict:
+    """The B1/B2 launches one window's plan calls for on this rank: one
+    per sharded gather / RMW node of a 2-D table (``is_2d(table_id)``) in
+    which the rank serves rows (``ShardStats.received``: a rank that owns
+    none of a node's rows launches nothing for it)."""
+    out = {"row_table_gather": 0, "row_table_rmw": 0}
+    for n in report.plan.roots:
+        if n.kind != "sharded" or not is_2d(n.inner.table_id):
+            continue
+        g = n.inner
+        st = report.shard_stats.get(g.table_id if g.kind == "gather"
+                                    else ("rmw", g.table_id, g.op))
+        if st is not None and int(st.received[rank]) > 0:
+            out["row_table_gather" if g.kind == "gather"
+                else "row_table_rmw"] += 1
+    return out
+
+
+def _add(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
+
+
 def ps_sizes(cut: bool) -> dict:
     """Phase 8's sizes, with the gloo groups' cuts of depth."""
     sizes = {k: dict(v) for k, v in APP_SIZES.items()}
@@ -3147,21 +3216,18 @@ def ps_app(rank, dev, mesh, case, runs):
                         tile_size=TILE)
     sched, eng = svc.scheduler, svc.scheduler.engine
     nodes = {"gather": 0, "rmw": 0}
-    served = {"gather": 0, "rmw": 0}
+    served = {"row_table_gather": 0, "row_table_rmw": 0}
     flush_async = sched.flush_async
 
     def counted(**kw):
+        nonlocal served
         handle = flush_async(**kw)
         rep = handle.report
         for n in rep.plan.roots:
-            if n.kind != "sharded":
-                continue
-            g = n.inner
-            st = rep.shard_stats.get(g.table_id if g.kind == "gather"
-                                     else ("rmw", g.table_id, g.op))
-            nodes[g.kind] += 1
-            served[g.kind] += st is not None and \
-                int(st.received[eng.rank]) > 0
+            if n.kind == "sharded":
+                nodes[n.inner.kind] += 1
+        served = _add(served, served_launches(rep, eng.rank,
+                                              lambda i: True))
         return handle
     sched.flush_async = counted
     gk.launches = 0
@@ -3283,10 +3349,8 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
                 raise AssertionError(f"phase 14 {name} {app}: rank(s) {bad} "
                                      "not bit for bit the host oracle")
             for r, a in enumerate(rs):
-                want = ({"row_table_gather": a["served"]["gather"],
-                         "row_table_rmw": a["served"]["rmw"]}
-                        if app in PS_2D else
-                        {"row_table_gather": 0, "row_table_rmw": 0})
+                want = a["served"] if app in PS_2D else \
+                    {"row_table_gather": 0, "row_table_rmw": 0}
                 if a["launches"] != want:
                     raise AssertionError(
                         f"phase 14 {name} {app} rank {r}: launches "
@@ -3316,6 +3380,317 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
             f"rank; peak per rank {[round(r['peak_gib'], 2) for r in ranks]}"
             f" GiB allocated; devices {sorted({r['device'] for r in ranks})};"
             f" ranks {[round(r['seconds'], 1) for r in ranks]} s; "
+            f"{wall:.1f} s")
+    return out
+
+
+# --- phase 15 --------------------------------------------------------------
+
+# the gloo groups (host-staged collectives, ~1-1.7 s a decode step) keep
+# every width and the whole trace, and cut the pool's decode steps
+PV_GLOO_CUTS = {"n_steps": 8}
+
+
+def pv_replay(rank, dev, mesh, n_events):
+    """Phase 9b's trace replayed SPMD over the process mesh: each rank
+    cuts every table to its rows on its card (the 256 MiB pool K0
+    included), flushes are wall-measured (each window's duration agreed:
+    the slowest rank's), the hottest tenant capped at 2 pending. Every
+    ticket checked on this rank (gathers whole, RMWs its rows), the window
+    log's digest returned for the parent to hold equal across ranks, and
+    B1/B2 against the plans' sharded 2-D nodes this rank serves."""
+    import hashlib
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import (AccessService, AdaptiveFlushController,
+                                   TrafficConfig, VirtualClock,
+                                   generate_trace, replay_trace)
+    t0 = time.perf_counter()
+    trace = generate_trace(TrafficConfig(**{**KV_TRACE,
+                                            "n_events": n_events}))
+    host = dict(trace.tables)
+    gen_s = time.perf_counter() - t0
+    svc = AccessService(mesh=mesh, use_kernel=True, auto_flush=0,
+                        tile_size=TILE, controller=AdaptiveFlushController(),
+                        clock=VirtualClock())
+    sched, eng = svc.scheduler, svc.scheduler.engine
+    ndim = {}                         # id(submitted table) -> its ndim
+
+    def noting(submit):
+        def sub(table, *a, **kw):
+            ndim[id(table)] = table.ndim
+            return submit(table, *a, **kw)
+        return sub
+    sched.submit_gather = noting(sched.submit_gather)
+    sched.submit_rmw = noting(sched.submit_rmw)
+    counts = {}
+    for e in trace.events:
+        counts[e.tenant] = counts.get(e.tenant, 0) + 1
+    svc.connect(max(counts, key=counts.get), max_pending=2)  # rejections
+    empty_cache(dev)
+    reset_peak(dev)
+    gk.launches = sk.launches = 0
+    c0 = eng.collectives
+    dist.barrier()
+    res, ms = timed(lambda: replay_trace(trace, svc))
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    peak = peak_gib(dev)
+    collectives = eng.collectives - c0
+    want = {"row_table_gather": 0, "row_table_rmw": 0}
+    for _, rep in res.windows:
+        want = _add(want, served_launches(rep, rank,
+                                          lambda i: ndim.get(i) == 2))
+    if launches != want:
+        raise AssertionError(f"rank {rank} replay launches {launches}, the "
+                             f"plans' sharded 2-D nodes it serves call for "
+                             f"{want}")
+    lo, hi = eng.rank_rows(host["K0"].shape[0])
+    k0 = torch.as_tensor(host["K0"][lo:hi], device=dev)
+    t1 = time.perf_counter()
+    n = check_replay(dev, trace, host, svc, res, k0,
+                     rank_rows=eng.rank_rows)
+    if n != len(res.tickets) or not res.rejected:
+        raise AssertionError(f"rank {rank} replay: {n} of "
+                             f"{len(res.tickets)} checked, "
+                             f"{len(res.rejected)} rejected")
+    summ = svc.telemetry.summary()
+    log_digest = hashlib.sha256(repr((
+        [(s, rep.order) for s, rep in res.windows],
+        [t.tid for _, t in res.tickets], [t.tid for _, t in res.rejected],
+        res.makespan_us, summ)).encode()).hexdigest()[:16]
+    out = {"ms": ms, "gen_s": gen_s, "check_s": time.perf_counter() - t1,
+           "windows": res.n_flushes, "tickets": n,
+           "rejected": len(res.rejected),
+           "depth": (float(np.mean([len(r.order) for _, r in res.windows])),
+                     max(len(r.order) for _, r in res.windows)),
+           "p50": summ["overall"]["p50_us"], "p99": summ["overall"]["p99_us"],
+           "makespan": res.makespan_us, "log": log_digest,
+           "launches": launches, "peak_gib": peak,
+           "pool_mib": k0.numel() * 4 / 2 ** 20,
+           "collectives": collectives,
+           "agreements": sched.stats["agreements"],
+           "agreement_ms": 1e3 * sched.stats["agreement_s"]}
+    del res, trace, svc, sched, eng, k0, host
+    empty_cache(dev)
+    return out
+
+
+def pv_kvpool(rank, dev, mesh, seed, n_steps):
+    """Phase 9c's KvPoolServer over the process mesh: each rank holds only
+    its rows of the pool, re-cut at every growth; every history (whole on
+    every rank) bit for bit the NumPy model's rows, the rank's final slice
+    the model pool's rows, the growths the model's; B1/B2 against the
+    plans' sharded nodes this rank serves."""
+    import statistics
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    from repro_torch.serve import AccessService, KvPoolServer
+    c = KVPOOL
+    p, w = c["page_size"], 2 * c["d"]
+    prefix, prompts, steps = kvpool_problem(seed)
+    init_pages = c["prefix_tokens"] // p + sum(-(-x.shape[0] // p)
+                                               for x in prompts)
+    svc = AccessService(mesh=mesh, use_kernel=True, auto_flush=0,
+                        tile_size=TILE)
+    sched, eng = svc.scheduler, svc.scheduler.engine
+    srv = KvPoolServer(page_size=p, d=c["d"], growth_pages=c["growth_pages"],
+                       init_pages=init_pages, service=svc)
+    model = KvPoolModel(p, c["growth_pages"], init_pages)
+    names = [f"s{i}" for i in range(c["n_seqs"])]
+    want = {"row_table_gather": 0, "row_table_rmw": 0}
+    flush_async = sched.flush_async
+
+    def counted(**kw):
+        nonlocal want
+        handle = flush_async(**kw)
+        want = _add(want, served_launches(handle.report, rank,
+                                          lambda i: True))
+        return handle
+    sched.flush_async = counted
+    empty_cache(dev)
+    reset_peak(dev)
+    gk.launches = sk.launches = 0
+    c0, w0 = eng.collectives, sched.stats["flushes"]
+    dist.barrier()
+    t0 = time.perf_counter()
+    srv.create_prefix("sys", prefix)
+    shared = model.alloc(c["prefix_tokens"] // p)
+    for i, name in enumerate(names):
+        srv.admit(name, f"tenant{i % c['n_tenants']}", prompts[i],
+                  prefix="sys")
+        model.admit(name, shared, prefix, prompts[i])
+    sync()
+    admit_ms = (time.perf_counter() - t0) * 1e3
+    grown_admit = srv.stats()["growths"]
+    step_ms, check_s = [], 0.0
+    for t in range(n_steps):
+        new = {name: steps[t, i] for i, name in enumerate(names)}
+        dist.barrier()
+        (hists, _), ms = timed(lambda: srv.decode_batch(new))
+        step_ms.append(ms)
+        t1 = time.perf_counter()
+        for name in names:
+            if not np.array_equal(hists[name].cpu().numpy(),
+                                  model.rows[name]):
+                raise AssertionError(f"rank {rank} kv pool step {t} "
+                                     f"{name}: history not bit for bit "
+                                     "the NumPy model's")
+            model.append(name, new[name])
+        check_s += time.perf_counter() - t1
+        del hists
+    launches = {"row_table_gather": gk.launches,
+                "row_table_rmw": sk.launches}
+    sched.flush_async = flush_async
+    st = srv.stats()
+    lo, hi = st["rank_rows"]
+    if not np.array_equal(srv.pool.cpu().numpy(), model.pool(w)[lo:hi]):
+        raise AssertionError(f"rank {rank} kv pool: its final slice is not "
+                             "the NumPy model pool's rows")
+    if st["growths"] <= grown_admit or st["cap_pages"] != model.cap \
+            or st["growths"] != model.growths:
+        raise AssertionError(f"rank {rank} kv pool did not grow while "
+                             f"decoding as the model did: {st}, "
+                             f"{grown_admit} growths at admission, model "
+                             f"{model.cap} pages, {model.growths} growths")
+    if launches != want:
+        raise AssertionError(f"rank {rank} kv pool launches {launches}, the "
+                             f"plans' sharded nodes it serves call for "
+                             f"{want}")
+    out = {"admit_ms": admit_ms, "ms": step_ms,
+           "median": statistics.median(step_ms), "check_s": check_s,
+           "stats": st, "launches": launches, "peak_gib": peak_gib(dev),
+           "pool_mib": srv.pool.numel() * 4 / 2 ** 20,
+           "windows": sched.stats["flushes"] - w0,
+           "collectives": eng.collectives - c0,
+           "agreements": sched.stats["agreements"]}
+    del srv, model, svc, sched, eng
+    empty_cache(dev)
+    return out
+
+
+def pv_rank(rank, world, backend, device, seed, cut):
+    """One rank of phase 15 (spawned): the replay, then the KV pool (with
+    the gloo groups' cuts of depth when ``cut``)."""
+    import torch
+    from repro_torch.distributed import process_mesh
+    mesh = process_mesh(device=device)
+    dev = mesh.device
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)     # a gloo rank's context, before stats
+    depth = {"n_events": KV_TRACE["n_events"], "n_steps": KVPOOL["n_steps"],
+             **(PV_GLOO_CUTS if cut else {})}
+    t0 = time.perf_counter()
+    out = {"rank": rank, "device": str(dev),
+           "replay": pv_replay(rank, dev, mesh, depth["n_events"]),
+           "kvpool": pv_kvpool(rank, dev, mesh, seed, depth["n_steps"])}
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_process_serving(dev, seed: int, groups=PM_GROUPS):
+    """``replay_trace`` and ``KvPoolServer`` over a ProcessMesh, SPMD, in
+    phase 13's groups: (a) phase 9b's trace with wall-measured flushes
+    (every rank's window log equal, every ticket checked on every rank),
+    (b) phase 9c's KV pool (every history bit for bit the NumPy model's,
+    each rank's slice the model pool's rows, growths the model's), B1/B2
+    per rank those of the plans' sharded 2-D nodes it serves. The gloo
+    groups cut depth (``PV_GLOO_CUTS``). Prints per group the slowest
+    rank's times beside phases 9b and 9c, peak and pool bytes per rank,
+    rows moved per growth, collectives and agreements per window, B1/B2
+    per rank. Returns each kernel's launches per group and rank."""
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    whole = {"n_events": KV_TRACE["n_events"], "n_steps": KVPOOL["n_steps"]}
+    log("reduced phase 15 gloo groups: " + ", ".join(
+        f"{k} {whole[k]} -> {v}" for k, v in PV_GLOO_CUTS.items()))
+    p9b = SERVING_RESULTS.get("replay")
+    p9c = SERVING_RESULTS.get("kvpool")
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    for backend, world, device in groups:
+        world = torch.cuda.device_count() if world is None else world
+        cut = backend == "gloo"
+        name = f"{backend}-{world}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ranks = run_ranks(pv_rank, world,
+                              args=(backend, device, seed, cut),
+                              backend=backend,
+                              init_method=f"file://{tmp}/store",
+                              timeout=PM_COLLECTIVE_S,
+                              join_timeout=PM_JOIN_S)
+        wall = time.perf_counter() - t0
+        for k in out:
+            out[k][name] = [r["replay"]["launches"][k]
+                            + r["kvpool"]["launches"][k] for r in ranks]
+            for part in ("replay", "kvpool"):
+                if not sum(r[part]["launches"][k] for r in ranks):
+                    raise AssertionError(f"phase 15 {name} {part}: no rank "
+                                         f"launched {k}")
+        rp = [r["replay"] for r in ranks]
+        logs = {x["log"] for x in rp}
+        if len(logs) != 1:
+            raise AssertionError(f"phase 15 {name}: the ranks' window logs "
+                                 f"differ ({logs})")
+        nw = rp[0]["windows"]
+        beside = (f"phase 9b {p9b['ms']:.1f} ms wall, p50 "
+                  f"{p9b['p50']:.1f} us, p99 {p9b['p99']:.1f} us, "
+                  f"{p9b['windows']} windows" if p9b else "phase 9b not run")
+        log(f"phase 15 {name} replay: "
+            f"{max(x['ms'] for x in rp):.1f} ms wall (slowest rank), {nw} "
+            f"windows (mean depth {rp[0]['depth'][0]:.2f}, max "
+            f"{rp[0]['depth'][1]}), {rp[0]['tickets']} tickets, "
+            f"{rp[0]['rejected']} rejected; virtual p50 {rp[0]['p50']:.1f} "
+            f"us p99 {rp[0]['p99']:.1f} us, makespan "
+            f"{rp[0]['makespan']:.0f} us; window log {rp[0]['log']} on every "
+            f"rank; {beside}")
+        log(f"phase 15 {name} replay: every ticket checked on every rank "
+            f"(check {max(x['check_s'] for x in rp):.1f} s, generation "
+            f"{max(x['gen_s'] for x in rp):.1f} s); B1/B2 per rank "
+            f"{[tuple(x['launches'].values()) for x in rp]}; per window "
+            f"{rp[0]['collectives'] / max(nw, 1):.1f} collectives, "
+            f"{(rp[0]['agreements'] + nw) / max(nw, 1):.1f} agreements "
+            f"(the plan's and the flush duration's), plan agreement host ms "
+            f"(max over ranks) "
+            f"{max(x['agreement_ms'] for x in rp) / max(nw, 1):.3f}; K0 "
+            f"slice per rank {[round(x['pool_mib'], 1) for x in rp]} MiB; "
+            f"peak per rank {[round(x['peak_gib'], 2) for x in rp]} GiB")
+        kv = [r["kvpool"] for r in ranks]
+        slowest = [max(x["ms"][i] for x in kv) for i in range(len(kv[0]["ms"]))]
+        st = kv[0]["stats"]
+        beside = (f"phase 9c {statistics.median(p9c['ms']):.1f} ms median, "
+                  f"{p9c['growths']} growths" if p9c else "phase 9c not run")
+        log(f"phase 15 {name} kv pool{' (cut depth)' if cut else ''}: "
+            f"decode_batch ms (slowest rank) "
+            f"{' '.join(f'{x:.1f}' for x in slowest)}, median "
+            f"{statistics.median(slowest):.1f}; admission "
+            f"{max(x['admit_ms'] for x in kv):.1f} ms; {beside}; pool "
+            f"{st['cap_pages']} pages, {st['growths']} growths (the model's)")
+        log(f"phase 15 {name} kv pool: every history and slice bit for bit "
+            f"on every rank (check {max(x['check_s'] for x in kv):.1f} s); "
+            f"rows per rank {[x['stats']['rank_rows'] for x in kv]}, slice "
+            f"{[round(x['pool_mib'], 1) for x in kv]} MiB; rows moved per "
+            f"growth (sent, received) "
+            f"{[tuple(round(m / st['growths'], 1) for m in x['stats']['moved_rows']) for x in kv]}"
+            f", growth collectives {st['growth_collectives']}; per window "
+            f"{kv[0]['collectives'] / max(kv[0]['windows'], 1):.1f} "
+            f"collectives, "
+            f"{kv[0]['agreements'] / max(kv[0]['windows'], 1):.1f} "
+            f"agreements; B1/B2 per rank "
+            f"{[tuple(x['launches'].values()) for x in kv]}; peak per rank "
+            f"{[round(x['peak_gib'], 2) for x in kv]} GiB")
+        log(f"phase 15 {name}: devices {sorted({r['device'] for r in ranks})}"
+            f"; ranks {[round(r['seconds'], 1) for r in ranks]} s; "
             f"{wall:.1f} s")
     return out
 
@@ -3358,6 +3733,7 @@ def main(argv=None) -> int:
     train_launches = phase_train(dev, args.seed)
     process_launches = phase_process_mesh(dev, args.seed, logical_ms)
     service_launches = phase_process_service(dev, args.seed)
+    serving_launches = phase_process_serving(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -3367,6 +3743,7 @@ def main(argv=None) -> int:
         row["train_launches"] = train_launches[row["name"]]
         row["process_mesh_launches"] = process_launches[row["name"]]
         row["process_service_launches"] = service_launches[row["name"]]
+        row["process_serving_launches"] = serving_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

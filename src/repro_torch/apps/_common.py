@@ -6,9 +6,9 @@ batch (embedding bags, KV sequences).
 Over a ``distributed.ProcessMesh`` (``mesh=`` or a service built on one)
 each rank runs the app, SPMD: the app's state stays whole on every rank,
 each table the engine reads or updates is submitted as the rank's slice
-(``rank_slice``), a gather resolves to its whole result, and an update's
-slice is put back together whole (``whole``), so ``run`` returns on every
-rank what it returns on one device.
+(``ShardedEngine.slice_of``), a gather resolves to its whole result, and
+an update's slice is put back together whole (``whole``), so ``run``
+returns on every rank what it returns on one device.
 """
 from __future__ import annotations
 
@@ -42,17 +42,6 @@ def placement(mode: str, service, mesh, device, **service_kw):
 def _process_engine(service):
     eng = service.scheduler.engine
     return eng if getattr(eng, "process", False) else None
-
-
-def rank_slice(service, table: torch.Tensor):
-    """``(table to submit, submit kwargs)`` for a row-sharded table: over
-    a process mesh this rank's rows ``rank_rows`` and ``n_rows``, else the
-    table itself and no kwargs."""
-    eng = _process_engine(service)
-    if eng is None:
-        return table, {}
-    lo, hi = eng.rank_rows(table.shape[0])
-    return table[lo:hi], {"n_rows": int(table.shape[0])}
 
 
 def whole(service, out: torch.Tensor, n_rows: int) -> torch.Tensor:

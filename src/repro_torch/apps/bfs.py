@@ -121,7 +121,7 @@ def run(g: Graph, src: int, *, levels: int, mode: str = "pipelined",
     sched = service.scheduler
     aux = {}   # k -> validity mask of that level's fused edge stream
 
-    adj_tab, adj_kw = _common.rank_slice(service, adj)
+    adj_tab, adj_kw = service.scheduler.engine.slice_of(adj)
 
     def access(loop, k, state):
         _, frontier = state
@@ -132,7 +132,7 @@ def run(g: Graph, src: int, *, levels: int, mode: str = "pipelined",
     def compute(k, state, nbrs):
         dist, _ = state
         valid = aux.pop(k)
-        tab, kw = _common.rank_slice(service, dist)
+        tab, kw = service.scheduler.engine.slice_of(dist)
         t = sched.submit_rmw(tab, nbrs, level_values(k), op="MIN",
                              cond=valid, **kw)
         # second window of the level: the RMW. inflight_ok — this window

@@ -206,7 +206,7 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
     sched = service.scheduler
 
     def access(loop, t, table):
-        tab, kw = _common.rank_slice(service, table)
+        tab, kw = service.scheduler.engine.slice_of(table)
         return {tname: loop.submit_gather(
                     tab, np.asarray(prob.tokens[t][bags]), tenant=tname,
                     **kw)
@@ -219,7 +219,7 @@ def run(prob: BagProblem, *, mode: str = "pipelined", service=None,
             per_out[tname] = bag_out(t, tname, rows)
         outs[t] = _common.collate(by_tenant, per_out)
         g = torch.remainder(outs[t], _GMOD)
-        tab, kw = _common.rank_slice(service, table)
+        tab, kw = service.scheduler.engine.slice_of(table)
         ts = [sched.submit_rmw(tab, tok, grads, op="ADD", cond=cond,
                                tenant=tname, **kw)
               for tname, (tok, grads, cond) in push_streams(t, g).items()]

@@ -371,7 +371,7 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
         into ``pool`` (over a process mesh, the rank's slice of it); every
         ticket is redeemed (one pool): a long-lived service would
         otherwise keep each window's pool alive through the others."""
-        tab, kw = _common.rank_slice(service, pool)
+        tab, kw = service.scheduler.engine.slice_of(pool)
         tickets = [sched.submit_rmw(tab, tensor(dests), vals, op="ADD",
                                     tenant=tname, **kw)
                    for tname, (dests, vals) in per_tenant.items()]
@@ -387,7 +387,7 @@ def run(prob: KvProblem, n_steps: int, *, mode: str = "pipelined",
 
     def access(loop, t, pool):
         masks, tix = {}, {}
-        tab, kw = _common.rank_slice(service, pool)
+        tab, kw = service.scheduler.engine.slice_of(pool)
         for tname in by_tenant:
             idx, masks[tname] = history(tname)
             tix[tname] = loop.submit_gather(tab, idx, tenant=tname, **kw)

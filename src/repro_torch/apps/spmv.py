@@ -135,7 +135,7 @@ def run(prob: SpmvProblem, n_iters: int, *, mode: str = "pipelined",
         return x.cpu().numpy()
 
     def access(loop, k, state):
-        tab, kw = _common.rank_slice(service, state)
+        tab, kw = service.scheduler.engine.slice_of(state)
         return loop.submit_gather(tab, col, **kw)
 
     def compute(k, state, xg):

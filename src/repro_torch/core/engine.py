@@ -208,6 +208,12 @@ class Engine:
         read-only (never instantiates or counts)."""
         return self._cache_key(program, batch, shared) in self._cache
 
+    def slice_of(self, table):
+        """``(table to submit, submit kwargs)`` for a row-sharded table:
+        here the table itself and no kwargs (``ShardedEngine`` over a
+        process mesh submits the rank's rows)."""
+        return table, {}
+
     # -- operands ------------------------------------------------------------
     @staticmethod
     def _reg(regs: Mapping, r):

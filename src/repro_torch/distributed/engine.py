@@ -38,6 +38,9 @@ Two meshes (``distributed.mesh``):
     the stream's order (with "owner" placement one more, ragged exchange
     puts the lanes back); an RMW returns the rank's updated slice;
     ``gather_blocks`` puts blocks or slices back together.
+    ``ShardedEngine.slice_of`` cuts a table to the rank's slice, and
+    ``ShardedEngine.regrow`` grows a slice, moving only the rows whose
+    owner changes.
 
 Owner-local execution runs with ``use_kernel`` as the engine's: on a 2-D
 table through the row-table kernels B1/B2, once per call on a logical mesh
@@ -342,6 +345,86 @@ class ShardedEngine(Engine):
         together whole on every rank (one all-gather)."""
         self.collectives += 1
         return gather_blocks(out, self.mesh, n)
+
+    def slice_of(self, table):
+        """``(table to submit, submit kwargs)`` for a row-sharded table:
+        over a process mesh this rank's rows ``rank_rows`` on its device
+        (a NumPy table is cut before it is copied there, and a u32/u64
+        one is marked ``unsigned``, which the tensor no longer says) with
+        the whole table's ``n_rows``; on a logical mesh the table itself
+        and no kwargs."""
+        if not self.process:
+            return table, {}
+        n = int(table.shape[0])
+        lo, hi = self.rank_rows(n)
+        if isinstance(table, torch.Tensor):
+            return table[lo:hi].to(self.device), {"n_rows": n}
+        table = np.asarray(table)
+        part = interop.to_tensor(np.ascontiguousarray(table[lo:hi]),
+                                 device=self.device)
+        return part, {"n_rows": n, "unsigned":
+                      table.dtype.name in ("uint32", "uint64")}
+
+    def regrow(self, part: torch.Tensor, n_old: int, n_new: int):
+        """This rank's slice of an ``n_old``-row table sharded over a
+        process mesh, grown to ``n_new >= n_old`` rows: the old rows
+        followed by zero rows. Returns ``(slice, moved)``: the rank's
+        slice ``rank_rows(n_new)`` as a new tensor (``part`` is never
+        written, so a gather already submitted on it still reads it) and
+        ``(sent, received)``, the rows this rank sent and received.
+
+        The ceil-div split moves its boundaries when the table grows, so
+        rows change owner: only those move, in one ragged ``all_to_all``
+        (none when no row changes owner), and each zero row is allocated
+        on its new owner. No rank holds more than its old and new slices
+        and the rows in flight."""
+        if not self.process:
+            raise ValueError("regrow re-cuts a table sharded over a process "
+                             "mesh; a logical mesh holds tables whole")
+        n_old, n_new = int(n_old), int(n_new)
+        if n_new < n_old:
+            raise ValueError(f"regrow shrinks {n_old} rows to {n_new}")
+        lo, hi = self.rank_rows(n_old)
+        if int(part.shape[0]) != hi - lo:
+            raise ValueError(
+                f"rank {self.rank} passed {part.shape[0]} table rows; its "
+                f"slice of a {n_old}-row table is rows [{lo}, {hi})")
+        nlo, nhi = self.rank_rows(n_new)
+        out = part.new_zeros((nhi - nlo,) + tuple(part.shape[1:]))
+        old = shard_row_ranges(n_old, self.num_shards)
+        new = shard_row_ranges(n_new, self.num_shards)
+
+        def overlap(a, b):
+            return max(a[0], b[0]), min(a[1], b[1])
+
+        # rows [a, b) of rank s's old slice that rank r now owns
+        cuts = [[overlap(old[s], new[r]) for r in range(self.num_shards)]
+                for s in range(self.num_shards)]
+        count = [[max(b - a, 0) if s != r else 0 for r, (a, b) in
+                  enumerate(row)] for s, row in enumerate(cuts)]
+        a, b = cuts[self.rank][self.rank]
+        if b > a:
+            out[a - nlo:b - nlo] = part[a - lo:b - lo]
+        sent = sum(count[self.rank])
+        received = sum(count[s][self.rank] for s in range(self.num_shards))
+        if not any(map(any, count)):
+            return out, (0, 0)
+        send = torch.cat([part[a - lo:b - lo] for r, (a, b) in
+                          enumerate(cuts[self.rank]) if count[self.rank][r]]
+                         or [part[:0]])
+        got = exchange.all_to_all(
+            send, self.mesh, send_counts=count[self.rank],
+            recv_counts=[count[s][self.rank]
+                         for s in range(self.num_shards)])
+        self.collectives += 1
+        k = 0
+        for s in range(self.num_shards):
+            c = count[s][self.rank]
+            if c:
+                a = cuts[s][self.rank][0]
+                out[a - nlo:a - nlo + c] = got[k:k + c]
+                k += c
+        return out, (sent, received)
 
     @staticmethod
     def _batch_precheck(program, envs, regs_list, shared) -> None:

@@ -9,6 +9,7 @@ Public surface (the counterparts of ``repro.serve``'s):
   FixedWindowController,   adaptive EOQ controller fed by measured arrival
   AdaptiveFlushController  rate, flush overhead and plan-IR coalescing gain
   plan_gain                the coalescing-gain extractor the controller uses
+  VirtualClock             a clock its caller sets (replay, process meshes)
   Telemetry, TenantStats   per-tenant submit->redeem latency, histograms
   TrafficConfig, Trace,    open-loop workload generator + committed traces
   TrafficEvent,            (digests equal the reference's)
@@ -24,7 +25,8 @@ from repro_torch.serve.access_service import (AccessService,  # noqa: F401
                                               AdaptiveFlushController,
                                               CoreClient,
                                               FixedWindowController,
-                                              FlushController, plan_gain)
+                                              FlushController, VirtualClock,
+                                              plan_gain)
 from repro_torch.serve.kv_cache import PagedKVCache  # noqa: F401
 from repro_torch.serve.kv_driver import KvPoolServer, KvSequence  # noqa: F401
 from repro_torch.serve.serve import ServeLoop  # noqa: F401
@@ -35,6 +37,7 @@ from repro_torch.serve.traffic import (ReplayResult, Trace,  # noqa: F401
 
 __all__ = ["AccessService", "AdaptiveFlushController", "CoreClient",
            "FixedWindowController", "FlushController", "plan_gain",
+           "VirtualClock",
            "PagedKVCache", "KvPoolServer", "KvSequence", "ServeLoop",
            "Telemetry", "TenantStats", "ReplayResult", "Trace",
            "TrafficConfig", "TrafficEvent", "generate_trace",

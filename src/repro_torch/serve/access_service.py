@@ -46,7 +46,12 @@ deterministic, but the wall clock is not, so a controller (whose deadline
 and measured flush overhead read the clock) needs ``clock=`` a clock the
 caller drives identically on every rank, and each window's clock reading
 is held equal across ranks by the window's agreement (a rank that
-differs raises ``core.PlanDivergence`` on every rank).
+differs raises ``core.PlanDivergence`` on every rank). ``serve.traffic
+.replay_trace`` runs over a process mesh too: it takes every time from
+the trace, never from the service clock, so a replayed service with a
+controller is built with ``clock=VirtualClock()``; it cuts each window at
+its trigger time and agrees each wall-measured flush duration across the
+ranks (their maximum).
 """
 from __future__ import annotations
 
@@ -63,6 +68,19 @@ from repro_torch.serve.telemetry import Telemetry
 
 def _wall_us() -> float:
     return time.perf_counter() * 1e6
+
+
+class VirtualClock:
+    """A service clock its caller sets (microseconds): reads ``now``,
+    the same on every rank of a process mesh while the caller sets it
+    alike. The clock of a replayed service (``serve.traffic
+    .replay_trace`` takes its times from the trace)."""
+
+    def __init__(self, now: float = 0.0):
+        self.now = float(now)
+
+    def __call__(self) -> float:
+        return self.now
 
 
 def plan_gain(report: Optional[FlushReport]) -> Optional[float]:

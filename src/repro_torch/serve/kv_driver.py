@@ -28,6 +28,14 @@ The driver never blocks the host: appends resolve through RMW tickets
 This is the port of the JAX package's ``serve.kv_driver``: the pool is a
 float32 tensor on the service's device, and every destination stream and
 K/V block goes there before it is submitted.
+
+Over a process mesh (a service over ``ShardedEngine(ProcessMesh)``, SPMD:
+every rank makes the same calls) each rank holds only its rows
+``rank_rows`` of the pool, submitted with the whole pool's ``n_rows``; a
+growth re-cuts the slice (``ShardedEngine.regrow``: only the rows whose
+owner changes move, and no rank ever holds the whole pool). Histories
+come back whole on every rank; ``stats()`` reports the whole pool, as on
+one device, and adds the rank's rows and what its growths moved.
 """
 from __future__ import annotations
 
@@ -72,27 +80,37 @@ class KvPoolServer:
         if service is None:
             from repro_torch.serve.access_service import AccessService
             service = AccessService(auto_flush=0)
-        if getattr(service.scheduler, "process", False):
-            raise NotImplementedError(
-                "KvPoolServer over a ProcessMesh is ROADMAP A14e: its pool "
-                "is not sliced by rank")
         self.service = service
         self.device = service.scheduler.engine.device
+        # over a process mesh: the sharded engine that cuts the pool
+        self._mesh = service.scheduler.engine \
+            if getattr(service.scheduler, "process", False) else None
         self.page_size = int(page_size)
         self.d = int(d)
         self.growth_pages = max(1, int(growth_pages))
         self.cap_pages = max(1, int(init_pages))
         self.free_head = 0
         self.growths = 0
-        self.pool = torch.zeros((self.cap_pages * self.page_size,
-                                 2 * self.d), dtype=torch.float32,
+        self.pool_rows = self.cap_pages * self.page_size   # the whole pool
+        lo, hi = self._rows()
+        # this rank's rows of the pool (all of them on one device)
+        self.pool = torch.zeros((hi - lo, 2 * self.d), dtype=torch.float32,
                                 device=self.device)
+        self.moved_rows = [0, 0]            # growths' rows sent, received
+        self.growth_collectives = 0
         self.seqs: Dict[str, KvSequence] = {}
         self.prefixes: Dict[str, Tuple[List[int], int]] = {}
 
     def _tensor(self, x, dtype=None) -> torch.Tensor:
         return torch.as_tensor(np.asarray(x), dtype=dtype,
                                device=self.device)
+
+    def _rows(self) -> Tuple[int, int]:
+        """The pool rows this rank holds: ``rank_rows`` over a process
+        mesh, else all of them."""
+        if self._mesh is None:
+            return 0, self.pool_rows
+        return self._mesh.rank_rows(self.pool_rows)
 
     # -- allocation ----------------------------------------------------------
 
@@ -103,11 +121,22 @@ class KvPoolServer:
             while self.cap_pages < self.free_head:
                 self.cap_pages += self.growth_pages
             self.growths += 1
-            grow_rows = self.cap_pages * self.page_size - self.pool.shape[0]
+            rows = self.cap_pages * self.page_size
             # device-side extension — never a host sync; next window's
-            # plan signature changes and the cost model re-decides
-            self.pool = torch.cat(
-                [self.pool, self.pool.new_zeros((grow_rows, 2 * self.d))])
+            # plan signature changes and the cost model re-decides. A new
+            # tensor either way: a gather already submitted in this
+            # window keeps reading the old one
+            if self._mesh is None:
+                self.pool = torch.cat([self.pool, self.pool.new_zeros(
+                    (rows - self.pool_rows, 2 * self.d))])
+            else:
+                c0 = self._mesh.collectives
+                self.pool, (sent, got) = self._mesh.regrow(
+                    self.pool, self.pool_rows, rows)
+                self.moved_rows[0] += sent
+                self.moved_rows[1] += got
+                self.growth_collectives += self._mesh.collectives - c0
+            self.pool_rows = rows
         return pages
 
     def _slots(self, pages: Sequence[int], start: int,
@@ -140,7 +169,7 @@ class KvPoolServer:
         sched = self.service.scheduler
         t = sched.submit_rmw(self.pool, self._tensor(dests),
                              self._tensor(kv, torch.float32), op="ADD",
-                             tenant="__prefix__")
+                             tenant="__prefix__", n_rows=self.pool_rows)
         sched.flush(inflight_ok=True)
         self.pool = sched.result(t)
         self.prefixes[name] = (pages, length)
@@ -168,7 +197,7 @@ class KvPoolServer:
             t = sched.submit_rmw(
                 self.pool, self._tensor(dests),
                 self._tensor(prompt_kv, torch.float32), op="ADD",
-                tenant=tenant)
+                tenant=tenant, n_rows=self.pool_rows)
             sched.flush(inflight_ok=True)
             self.pool = sched.result(t)
         self.seqs[name] = seq
@@ -199,11 +228,14 @@ class KvPoolServer:
             idx = self._slots(seq.pages, 0, seq.length)
             tickets[name] = sched.submit_gather(self.pool,
                                                 self._tensor(idx),
-                                                tenant=seq.tenant)
+                                                tenant=seq.tenant,
+                                                n_rows=self.pool_rows)
         # allocate every destination BEFORE submitting any append: growth
         # swaps self.pool for a longer array, and all of one window's
         # appends must target the same table object to fuse (and to make
-        # any append ticket resolve to the whole window's end state)
+        # any append ticket resolve to the whole window's end state). The
+        # gathers above keep the old pool (and its n_rows); every rank
+        # grows at the same point, the allocator being deterministic
         dests = {}
         for name in new_kv:
             seq = self.seqs[name]
@@ -215,7 +247,8 @@ class KvPoolServer:
             sched.submit_rmw(
                 self.pool, self._tensor(dests[name]),
                 self._tensor(kv, torch.float32).reshape(1, 2 * self.d),
-                op="ADD", tenant=self.seqs[name].tenant)
+                op="ADD", tenant=self.seqs[name].tenant,
+                n_rows=self.pool_rows)
             for name, kv in new_kv.items()]
         handle = sched.flush_async(inflight_ok=True)
         # every append ticket resolves to the same end-of-window pool;
@@ -231,7 +264,15 @@ class KvPoolServer:
     def stats(self) -> dict:
         """Pool occupancy and growth counters (plus live sequence count);
         service-level latency/window telemetry stays on
-        ``self.service.stats()``."""
-        return {"cap_pages": self.cap_pages, "used_pages": self.free_head,
-                "growths": self.growths, "n_seqs": len(self.seqs),
-                "pool_rows": int(self.pool.shape[0])}
+        ``self.service.stats()``. Over a process mesh the counters are the
+        whole pool's, and ``rank_rows`` (this rank's rows), ``moved_rows``
+        (the rows its growths sent and received) and
+        ``growth_collectives`` are added."""
+        out = {"cap_pages": self.cap_pages, "used_pages": self.free_head,
+               "growths": self.growths, "n_seqs": len(self.seqs),
+               "pool_rows": self.pool_rows}
+        if self._mesh is not None:
+            out.update(rank_rows=self._rows(),
+                       moved_rows=tuple(self.moved_rows),
+                       growth_collectives=self.growth_collectives)
+        return out

@@ -31,7 +31,9 @@ replays it deterministically:
 This is the port of the JAX package's ``serve.traffic``. Generation is the
 reference's NumPy, draw for draw, so a config gives the same trace and the
 same ``Trace.digest()`` in both packages; replay submits to the port's
-scheduler, whose results are tensors on the service's device.
+scheduler, whose results are tensors on the service's device. Replay also
+runs SPMD over a process mesh, each rank holding its rows of every table
+(see ``replay_trace``).
 
 Parity-friendly by construction (as the JAX package's
 ``fuzzer.generate_mixed_case``):
@@ -393,17 +395,29 @@ def replay_trace(trace: Trace, service, *,
     ``tile_size`` only affects how the trace's *programs* are compiled
     for submission; it defaults to the service engine's own tile so the
     scratchpad shapes always agree with the executor.
+
+    Over a process mesh (a service over ``ShardedEngine(ProcessMesh)``,
+    SPMD: every rank replays the same trace) each rank cuts every trace
+    table to its rows once (``ShardedEngine.slice_of``), on its device,
+    and submits the slices with ``n_rows``; programs keep their whole
+    envs. Each window is cut at its trigger time (``cut=``, held equal by
+    the window's agreement), and a wall-measured flush duration is agreed
+    across the ranks (their maximum: a window ends when its slowest unit
+    does) before it reaches the busy timeline, the telemetry or the
+    controller. The service's own clock is never read: every time comes
+    from the trace. The ``ReplayResult`` and the
+    telemetry are then the same on every rank; a gather ticket resolves
+    to its whole result, an RMW ticket to the rank's slice.
     """
     sched = service.scheduler
-    if getattr(sched, "process", False):
-        raise NotImplementedError(
-            "replay_trace over a ProcessMesh is ROADMAP A14e: its cuts "
-            "follow wall-measured flush times, which differ between ranks, "
-            "and its tables are not sliced by rank")
+    process = getattr(sched, "process", False)
     if tile_size is None:
         tile_size = sched.engine.tile_size
     ctl = service.controller
     tel = service.telemetry
+    # table name -> (what to submit, submit kwargs)
+    tables = {name: sched.engine.slice_of(t)
+              for name, t in trace.tables.items()}
     now = 0.0
     server_free = 0.0
     windows: List[Tuple[float, FlushReport]] = []
@@ -416,11 +430,15 @@ def replay_trace(trace: Trace, service, *,
         pending = sched.pending
         limit = ctl.drain_limit(pending) if ctl is not None else None
         w0 = time.perf_counter()
-        handle = sched.flush_async(inflight_ok=True, drain_limit=limit)
+        handle = sched.flush_async(inflight_ok=True, drain_limit=limit,
+                                   cut=float(trigger_us) if process
+                                   else None)
         handle.result()
         rep = handle.report
         if service_time is None:
             d = (time.perf_counter() - w0) * 1e6
+            if process:
+                d = max(sched.engine.agree(d))
         else:
             d = float(service_time(len(rep.order), rep))
         start = max(float(trigger_us), server_free)
@@ -439,12 +457,13 @@ def replay_trace(trace: Trace, service, *,
         # kv_decode/kv_append are page-structured load generators; they
         # lower to the same two bulk submissions as their plain kinds
         if ev.kind in ("gather", "kv_decode"):
-            return sched.submit_gather(trace.tables[ev.table], ev.idx,
-                                       tenant=ev.tenant)
+            table, kw = tables[ev.table]
+            return sched.submit_gather(table, ev.idx, tenant=ev.tenant,
+                                       n_rows=kw.get("n_rows"))
         if ev.kind in ("rmw", "kv_append"):
-            return sched.submit_rmw(trace.tables[ev.table], ev.idx,
-                                    ev.values, op=ev.op, cond=ev.cond,
-                                    tenant=ev.tenant)
+            table, kw = tables[ev.table]
+            return sched.submit_rmw(table, ev.idx, ev.values, op=ev.op,
+                                    cond=ev.cond, tenant=ev.tenant, **kw)
         # program: compile each distinct shape once, submit with its env
         if ev.program_id not in compiled:
             pattern, env, n = trace.programs[ev.program_id]

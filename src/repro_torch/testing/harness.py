@@ -846,7 +846,7 @@ def rotating_configs(seed: int, *, n_eager: int = 2,
 def check_traffic_parity(trace, service=None, *,
                          tile_size: Optional[int] = None,
                          service_time=None, rtol: float = 1e-4,
-                         atol: float = 1e-5, device="cuda"):
+                         atol: float = 1e-5, device="cuda", mesh=None):
     """Replay an open-loop trace through a service and assert every
     ticket bit-exact vs the NumPy oracle — adaptive window sizing and WFQ
     must change *when* work runs, never *what* it computes.
@@ -869,18 +869,27 @@ def check_traffic_parity(trace, service=None, *,
         check.
 
     ``device``: where a service built here runs (a given ``service``
-    brings its own). Returns ``(checked, ReplayResult)``.
+    brings its own); ``mesh``: a ``distributed.ProcessMesh`` the service
+    built here spans instead, on its ranks' devices. Over a process mesh
+    (this one or the given service's) the replay runs SPMD: each gather
+    ticket is held whole, each RMW ticket as the rank's rows
+    ``rank_rows`` of its window's end state, and the verdict is
+    all-reduced — a mismatch on any rank raises on every rank. Returns
+    ``(checked, ReplayResult)``.
     """
-    from repro_torch.core.scheduler import QueueFullError
     from repro_torch.serve.access_service import (AccessService,
-                                                  AdaptiveFlushController)
+                                                  AdaptiveFlushController,
+                                                  VirtualClock)
     from repro_torch.serve.traffic import replay_trace
 
     if service is None:
+        # the replay reads no clock: the virtual one passes the service's
+        # check that a controller over a process mesh has one
         service = AccessService(
             tile_size=tile_size or 256, auto_flush=0,
             controller=AdaptiveFlushController(overhead_us=200.0),
-            device=device)
+            clock=VirtualClock(),
+            **({"device": device} if mesh is None else {"mesh": mesh}))
     if tile_size is None:
         # programs must compile at the engine's own tile so the oracle's
         # scratchpad shapes agree with what the service executed
@@ -892,6 +901,25 @@ def check_traffic_parity(trace, service=None, *,
     res = replay_trace(trace, service, service_time=service_time,
                        tile_size=tile_size)
     sched = service.scheduler
+    if not sched.process:
+        return _check_traffic(trace, res, sched, tile_size, rtol, atol,
+                              None), res
+    failure, checked = None, 0
+    try:
+        checked = _check_traffic(trace, res, sched, tile_size, rtol, atol,
+                                 sched.engine.rank_rows)
+    except ParityError as e:
+        failure = str(e)
+    _process_verdict(sched.engine.mesh, failure, sched.engine.device)
+    return checked, res
+
+
+def _check_traffic(trace, res, sched, tile_size, rtol, atol,
+                   rank_rows) -> int:
+    """``check_traffic_parity``'s checks of a replay's tickets; RMW
+    tickets are held as the rows ``rank_rows(n)`` of their expected
+    table (all of them when ``rank_rows`` is None)."""
+    from repro_torch.core.scheduler import QueueFullError
     win_of = res.window_of()
 
     # RMW oracle: per (window, table), sequential submission-order replay
@@ -919,6 +947,8 @@ def check_traffic_parity(trace, service=None, *,
                           rtol=0, atol=0)
         elif ev.kind in ("rmw", "kv_append"):
             want = end_state[(win_of[t.tid], ev.table)]
+            if rank_rows is not None:
+                want = want[slice(*rank_rows(want.shape[0]))]
             # kv_append streams are integer-valued f32 ADDs — exact and
             # order-free despite the float dtype
             exact = (trace.tables[ev.table].dtype != np.float32
@@ -955,4 +985,4 @@ def check_traffic_parity(trace, service=None, *,
             continue
         raise ParityError(f"rejected ticket {t} did not raise "
                           "QueueFullError from result()")
-    return checked, res
+    return checked

@@ -452,3 +452,234 @@ def service_main(rank, world, out_dir, mixed_seeds, app_seeds):
     out["seconds"] = time.perf_counter() - t0
     Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
     return True
+
+
+# ---------------------------------------------------------------------------
+# test_torch_process_serving.py: replay_trace and KvPoolServer over a
+# process mesh
+# ---------------------------------------------------------------------------
+
+SERVING_TILE = 256
+#: the reference's mesh replay (tests/test_traffic.py:146)
+MESH_TRACE = dict(seed=11, n_events=120, p_program=0.0)
+#: tests/test_traffic.py:426's soak trace
+LONG_TRACE = dict(seed=43, n_events=1000, n_tenants=2000, p_program=0.0)
+#: tests/test_kv_embedding.py:66's widths
+KV_WIDTHS = dict(page_size=4, d=4, init_pages=4, growth_pages=2)
+KV_STEPS = 6
+#: (n_old, n_new) re-cuts of a row-sharded table
+REGROW_CASES = ((16, 24), (16, 16), (10, 40), (0, 12), (3, 5), (37, 38))
+
+
+def service_time(depth, report):
+    return 200.0 + 8.0 * depth
+
+
+def replay_record(res, svc, rank_rows):
+    """What every rank must agree on, and its tickets: the windows
+    (start, order), admissions, rejections, makespan and telemetry; each
+    gather ticket whole and each RMW ticket as the rank's slice (with the
+    rows it covers)."""
+    sched = svc.scheduler
+    results = []
+    for ev, t in res.tickets:
+        got = _numpy(sched.result(t))
+        if ev.kind in ("rmw", "kv_append"):
+            results.append((got, rank_rows(res.trace.tables[ev.table]
+                                           .shape[0])))
+        else:
+            results.append((got, None))
+    return {"windows": [(s, rep.order) for s, rep in res.windows],
+            "tickets": [t.tid for _, t in res.tickets],
+            "rejected": [t.tid for _, t in res.rejected],
+            "makespan": res.makespan_us,
+            "telemetry": svc.telemetry.summary(),
+            "results": results}
+
+
+def mesh_service(mesh, controller, **kw):
+    from repro_torch.serve import AccessService, VirtualClock
+    return AccessService(mesh=mesh, tile_size=SERVING_TILE, auto_flush=0,
+                         controller=controller, clock=VirtualClock(), **kw)
+
+
+def corpus_controller(seed):
+    """``test_torch_traffic.corpus_service``'s controller for a seed."""
+    from repro_torch.serve import (AdaptiveFlushController,
+                                   FixedWindowController)
+    kind = seed % 4
+    if kind == 0:
+        return AdaptiveFlushController(overhead_us=200.0)
+    if kind == 1:
+        return FixedWindowController(2)
+    if kind == 2:
+        return FixedWindowController(16, drain_cap=6)
+    return AdaptiveFlushController(overhead_us=200.0, drain_cap=8)
+
+
+def corpus_service(mesh, seed, trace):
+    """``test_torch_traffic.corpus_service`` over the process mesh, on a
+    virtual clock."""
+    svc = mesh_service(mesh, corpus_controller(seed))
+    if seed % 4 == 3:
+        counts = {}
+        for e in trace.events:
+            counts[e.tenant] = counts.get(e.tenant, 0) + 1
+        hot = sorted(counts, key=counts.get, reverse=True)[:2]
+        svc.connect(hot[0], weight=4.0, max_pending=4)
+        if len(hot) > 1:
+            svc.connect(hot[1], weight=0.5, max_pending=2)
+    return svc
+
+
+def kv_scenario(seed=3, seqs=4, prompt=3, prefix_pages=2):
+    """The draws of ``test_torch_kvpool.servers``' scenario: a shared
+    prefix, each sequence's prompt, and ``KV_STEPS`` decode batches over
+    every sequence (the pool grows while decoding)."""
+    rng = np.random.default_rng(seed)
+    p, d = KV_WIDTHS["page_size"], KV_WIDTHS["d"]
+    prefix = rng.integers(0, 4, size=(prefix_pages * p, 2 * d)).astype(
+        np.float32)
+    prompts = [rng.integers(0, 4, size=(prompt + i % 3, 2 * d)).astype(
+        np.float32) for i in range(seqs)]
+    steps = rng.integers(0, 4, size=(KV_STEPS, seqs, 2 * d)).astype(
+        np.float32)
+    return prefix, prompts, steps
+
+
+def kv_run(srv, draws, on_step=None):
+    """The scenario on ``srv`` (either package's server): each step's
+    histories as NumPy; ``on_step(t)`` runs after each decode batch."""
+    prefix, prompts, steps = draws
+    srv.create_prefix("sys", prefix)
+    for i, kv in enumerate(prompts):
+        srv.admit(f"s{i}", f"tenant{i % 2}", kv, prefix="sys")
+    out = []
+    for t in range(steps.shape[0]):
+        hists, _ = srv.decode_batch({f"s{i}": steps[t, i]
+                                     for i in range(steps.shape[1])})
+        out.append({k: _numpy(v) for k, v in hists.items()})
+        if on_step is not None:
+            on_step(t)
+    return out
+
+
+def _kv_pool(mesh):
+    """The KV pool server over the mesh: every step's histories, the
+    rank's slice and stats after each step, and each growth's rows."""
+    from repro_torch.serve import AccessService, KvPoolServer
+    srv = KvPoolServer(service=AccessService(mesh=mesh, auto_flush=0,
+                                             tile_size=SERVING_TILE),
+                       **KV_WIDTHS)
+    steps = []
+
+    def on_step(t):
+        steps.append({"slice": _numpy(srv.pool), "stats": srv.stats()})
+    hists = kv_run(srv, kv_scenario(), on_step)
+    return {"hists": hists, "steps": steps,
+            "pages": {k: list(s.pages) for k, s in srv.seqs.items()}}
+
+
+def _regrow(eng):
+    """``ShardedEngine.regrow`` on a table whose row r holds r + 1: each
+    case's new slice, the rows moved and the collectives it took."""
+    out = []
+    for n_old, n_new in REGROW_CASES:
+        whole = np.arange(1, n_old + 1, dtype=np.float32)[:, None] * \
+            np.ones((1, 3), np.float32)
+        lo, hi = eng.rank_rows(n_old)
+        part = torch.from_numpy(whole[lo:hi].copy())
+        before = part.clone()
+        c0 = eng.collectives
+        got, moved = eng.regrow(part, n_old, n_new)
+        out.append({"slice": got.numpy(), "moved": moved,
+                    "collectives": eng.collectives - c0,
+                    "untouched": torch.equal(part, before),
+                    "new_object": got.data_ptr() != part.data_ptr()
+                    or got.numel() == 0})
+    try:
+        eng.regrow(torch.zeros((1, 3)), 40, 80)
+        out.append("accepted")
+    except ValueError as e:
+        out.append(str(e))
+    return out
+
+
+def _serving_refusals(mesh, rank):
+    """A controller without a clock over the mesh is still refused; a
+    rank whose trace differs in one event raises ``PlanDivergence`` on
+    every rank at that window's flush."""
+    from repro_torch.core import PlanDivergence
+    from repro_torch.serve import (AccessService, AdaptiveFlushController,
+                                   TrafficConfig, generate_trace,
+                                   replay_trace)
+    out = {}
+    try:
+        AccessService(mesh=mesh, controller=AdaptiveFlushController())
+        out["no_clock"] = "accepted"
+    except ValueError as e:
+        out["no_clock"] = str(e)
+    trace = generate_trace(TrafficConfig(seed=5, n_events=40,
+                                         p_program=0.0))
+    if rank == 1:
+        ev = next(e for e in trace.events if e.kind == "gather")
+        ev.idx = np.concatenate([ev.idx, ev.idx[:1]])
+    svc = mesh_service(mesh, AdaptiveFlushController(overhead_us=200.0))
+    try:
+        replay_trace(trace, svc, service_time=service_time)
+        out["diverge"] = None
+    except PlanDivergence as e:
+        out["diverge"] = str(e)
+    return out
+
+
+def serving_main(rank, world, out_dir, corpus_seeds, ref_traces):
+    """Rank side of ``test_torch_process_serving.py``: the reference's
+    mesh replays (``ref_traces``: TrafficConfig kwargs), the traffic
+    corpus through ``check_traffic_parity`` (each seed on its own
+    service over the mesh, and corpus seed 0 once more on the service
+    ``check_traffic_parity(mesh=...)`` builds), a replay with
+    wall-measured flushes, the KV pool server, the re-cut helper and the
+    refusals (last: the diverging trace)."""
+    import time
+    from repro_torch.distributed import ShardedEngine, process_mesh
+    from repro_torch.serve import (AdaptiveFlushController, TrafficConfig,
+                                   generate_trace, replay_trace)
+    from repro_torch.testing import generate_traffic_case, harness
+    mesh = process_mesh(device="cpu")
+    t0 = time.perf_counter()
+    out = {"rank": rank, "world": world, "ref": {}, "corpus": {}}
+    for cfg in ref_traces:
+        trace = generate_trace(TrafficConfig(**cfg))
+        svc = mesh_service(mesh, AdaptiveFlushController(overhead_us=200.0))
+        res = replay_trace(trace, svc, service_time=service_time)
+        out["ref"][cfg["seed"]] = replay_record(
+            res, svc, svc.scheduler.engine.rank_rows)
+    for seed in corpus_seeds:
+        trace = generate_traffic_case(seed)
+        svc = corpus_service(mesh, seed, trace)
+        checked, res = harness.check_traffic_parity(trace, svc)
+        out["corpus"][seed] = {
+            "checked": checked,
+            "windows": [(s, rep.order) for s, rep in res.windows],
+            "rejected": [t.tid for _, t in res.rejected],
+            "telemetry": svc.telemetry.summary()}
+    trace = generate_traffic_case(0)
+    checked, res = harness.check_traffic_parity(trace, mesh=mesh)
+    out["mesh_built"] = {
+        "checked": checked,
+        "windows": [(s, rep.order) for s, rep in res.windows],
+        "rejected": [t.tid for _, t in res.rejected]}
+    svc = mesh_service(mesh, AdaptiveFlushController())
+    res = replay_trace(trace, svc)
+    out["wall"] = {"windows": [(s, rep.order) for s, rep in res.windows],
+                   "makespan": res.makespan_us,
+                   "telemetry": svc.telemetry.summary(),
+                   "controller": svc.controller.snapshot(),
+                   "agreements": svc.scheduler.stats["agreements"]}
+    out["kv"] = _kv_pool(mesh)
+    out["regrow"] = _regrow(ShardedEngine(mesh, device="cpu"))
+    out["refusals"] = _serving_refusals(mesh, rank)
+    out["seconds"] = time.perf_counter() - t0
+    Path(out_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    return True
