@@ -219,6 +219,33 @@ the script exits non-zero without its result line:
               bytes per rank, rows moved per growth, collectives and
               agreements per window, B1/B2 per rank.
 
+ 16. train    the train step over a process mesh
+     mesh     (``launch.mesh.make_process_mesh``: one spawned process per
+              mesh position, tensor-parallel over ``model``, data-parallel
+              with ZeRO-1 over ``data``, each rank holding only its
+              shards) in phase 13's groups, on a (1, 1) mesh at world 1,
+              (1, 2) at world 2, (2, 2) at world 4. (a) Qwen3-0.6B whole
+              (bf16, AdamW bf16 moments, remat "full") at 8 x 512 through
+              ``Trainer(mesh=...)``: a checkpoint at step 2 saved from the
+              mesh, step 2, a resume from the checkpoint on the same mesh
+              whose step 2 equals it bit for bit (deterministic mode), then
+              ``elastic_restore`` onto (2, 1) / (4, 1): every leaf the
+              saved whole leaf's slice bit for bit, one finite step; each
+              rank's params and moments hold their shards' bytes; the
+              gloo groups run (a) and (d) at TM_GLOO_LAYERS of the 28
+              layers, widths kept. (b) one f32 step of Qwen3-0.6B whole
+              (every group) at 2 x 128 on the mesh against the one-device
+              float64 step: loss, global norm and every updated leaf
+              (params and moments, gathered) within the TRAIN_* bounds;
+              each rank's device and host peaks over it. (c) dbrx
+              reduced likewise: EP over (1, w) with w experts, and at
+              world 4 experts over ``model`` on (2, 2) with a capacity
+              factor that drops tokens. (d) the warm
+              bf16 step of (a) (slowest rank, median of 3) beside phase
+              12's, tokens/s, peak per rank, and one step with every
+              collective counted, its payload bytes and its share of the
+              step. (e) B1/B2 launches 0 on every rank.
+
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
 plans bit for bit, floats included; float
@@ -243,8 +270,9 @@ replay, ``kvpool_launches`` phase 9c's run, ``serve_launches`` phase 10,
 checked calls per group, summed over its ranks,
 ``process_service_launches`` phase 14's checked window and apps per
 group, one count per rank, ``process_serving_launches`` phase 15's
-replay and KV pool per group, one count per rank) and {"ok": true,
-"device": {...}}.
+replay and KV pool per group, one count per rank, ``train_mesh_launches``
+phase 16 per group, one count per rank) and {"ok": true, "device":
+{...}}.
 """
 from __future__ import annotations
 
@@ -2621,6 +2649,7 @@ TRAIN_LOSS_RTOL = 1e-5             # f32 on the card against float64
 TRAIN_GRAD_REL_L2 = 1e-4           # per gradient leaf
 TRAIN_NORM_RTOL = 1e-5             # the global norm
 TRAIN_TIMED = 3                    # warm timed bf16 steps (median)
+TRAIN_RESULTS: dict = {}           # (d)'s step, printed beside phase 16's
 
 
 def check_train_step(what, dev, cfg, params, batch, *, mesh=None):
@@ -2779,6 +2808,7 @@ def train_measure(dev, seed: int):
                                   coll_bytes={}, chips=1,
                                   model_flops_total=mflops)
     bound_ms = max(rep.compute_s, rep.memory_s) * 1e3
+    TRAIN_RESULTS.update(ms=ms, peak_gib=peak)
     log(f"phase 12 (d) train {TRAIN_ARCH} bf16 (8 x 512, AdamW bf16 "
         f"moments): {ms:.3f} ms per step (median of "
         f"{' '.join(f'{t:.3f}' for t in times)}), "
@@ -3695,6 +3725,469 @@ def phase_process_serving(dev, seed: int, groups=PM_GROUPS):
     return out
 
 
+# --- phase 16 --------------------------------------------------------------
+
+TRAIN_CHECK_MESH = (2, 128)        # (b): batch x seq of the f32 step
+TM_DROP_CF = 0.5                   # (c): the GSPMD MoE's capacity factor
+TM_TIMED = 3                       # (d): warm timed bf16 steps (median)
+TM_JOIN_S = 900                    # a group not done by then fails
+TM_GLOO_LAYERS = 4                 # the gloo groups' (a)/(d) depth (of 28)
+
+
+def tm_shapes(world: int):
+    """(data, model) of the group's mesh, and of the mesh its elastic
+    restore lands on (none at world 1)."""
+    if world == 1:
+        return (1, 1), None
+    return (world // 2, 2), (world, 1)
+
+
+def tm_template(cfg):
+    """Whole-leaf shapes of a params/optimizer state (elastic restore's
+    template): fake tensors, no storage."""
+    from repro_torch.launch.dryrun import abstract_params
+    _, shapes, _ = abstract_params(cfg)
+    return {"params": shapes, "opt": {"mu": shapes, "nu": shapes,
+                                      "step": None}}
+
+
+def tm_held(step, template, params, opt) -> int:
+    """Bytes the rank's params and moments hold; raises unless every leaf
+    is its shard (the shape under the step's specs, a storage of that
+    many bytes): no sharded leaf held whole."""
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.launch import mesh as meshlib
+    mesh = step.mesh
+    total = 0
+    for tree, specs in ((params, step.in_specs[0]),
+                        (opt["mu"], step.in_specs[1]["mu"]),
+                        (opt["nu"], step.in_specs[1]["nu"])):
+        spec_of = dict(tree_leaves_with_path(specs, is_leaf=meshlib.is_spec))
+        full = dict(tree_leaves_with_path(template))
+        for p, t in tree_leaves_with_path(tree):
+            want = meshlib.shard_shape(tuple(full[p].shape), spec_of[p],
+                                       mesh)
+            nbytes = t.untyped_storage().nbytes()
+            if tuple(t.shape) != want or \
+                    nbytes != t.numel() * t.element_size():
+                raise AssertionError(
+                    f"rank {mesh.rank} {'/'.join(map(str, p))}: shape "
+                    f"{tuple(t.shape)} ({nbytes} bytes held), its shard is "
+                    f"{want}")
+            total += nbytes
+    return total
+
+
+def tm_collectives(stats: dict):
+    """Count every collective of ``distributed.exchange`` the train step
+    calls (the layers', the loss's, the step's): calls, payload bytes and
+    time, each bracketed by device synchronisations. Returns the undo."""
+    from repro_torch.core.device import synchronize
+    from repro_torch.distributed import exchange
+    real = {k: getattr(exchange, k) for k in
+            ("all_reduce", "all_gather", "reduce_scatter")}
+
+    def wrap(name, fn):
+        def counted(x, mesh, *a, **kw):
+            synchronize(x.device)
+            t = time.perf_counter()
+            out = fn(x, mesh, *a, **kw)
+            synchronize(x.device)
+            stats["s"] += time.perf_counter() - t
+            stats["calls"][name] = stats["calls"].get(name, 0) + 1
+            stats["bytes"] += x.numel() * x.element_size()
+            return out
+        return counted
+    for k, fn in real.items():
+        setattr(exchange, k, wrap(k, fn))
+    return lambda: [setattr(exchange, k, fn) for k, fn in real.items()]
+
+
+def tm_saved(directory: Path, step: int):
+    """``(key, tensor)`` of every leaf of a saved step, read one leaf at a
+    time (the elastic check's independent reader; the loader's hash
+    checks already ran in ``elastic_restore``)."""
+    import numpy as np
+    from repro_torch.train import checkpoint as ckpt
+    path = directory / f"step_{step}"
+    entries = json.loads((path / "manifest.json").read_text())["entries"]
+    for sid in sorted({e["shard"] for e in entries.values()}):
+        with np.load(path / f"shard_{sid}.npz") as z:
+            for key in z.files:
+                yield key, ckpt._decode(z[key], entries[key]["dtype"])
+
+
+def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
+    """(a) and (d) on one rank: Qwen3-0.6B whole in bf16 at 8 x 512 on
+    the group's mesh (``Trainer(mesh=...)``), steps 0-1, a checkpoint at
+    step 2 from the mesh, step 2; a resume from it on the same mesh whose
+    step 2 must equal bit for bit (deterministic mode); then, in the
+    default mode, TM_TIMED timed steps and one step whose collectives are
+    counted and timed; then ``elastic_restore`` of step 2 onto the other
+    shape: every leaf the checkpoint's whole leaf's slice, one finite
+    step."""
+    import statistics
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.tree import tree_leaves_with_path, path_key
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.elastic import elastic_restore
+    from repro_torch.train.trainer import Trainer
+    shape, other = tm_shapes(dist.get_world_size())
+    mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
+    dev = mesh.device
+    template = tm_template(cfg)
+    model = build_model(cfg, device=dev)
+    total = 4 + TM_TIMED
+
+    def trainer_on(m):
+        return Trainer(model=model, mesh=m, warmup=1, total_steps=total)
+    pipe = SyntheticTokenPipeline(cfg, 8, 512, seed=seed, device=dev)
+    step = trainer_on(mesh).jitted_step(pipe.get_batch(0))
+    batch = lambda i: meshlib.shard_tree(pipe.get_batch(i),
+                                         step.in_specs[2], mesh)
+    out = {"shape": shape, "other": other, "device": str(dev)}
+    empty_cache(dev)
+    reset_peak(dev)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    params, opt = trainer_on(mesh).init_state(seed)
+    out["held"] = tm_held(step, template["params"], params, opt)
+    losses = []
+    for i in range(2):
+        params, opt, m = step(params, opt, batch(i))
+        losses.append(float(m["loss"]))
+    specs = {"params": step.in_specs[0], "opt": step.in_specs[1]}
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(str(tmp / "ckpt"), 2, {"params": params,
+                                                "opt": opt},
+                         mesh=mesh, specs=specs,
+                         extra=pipe.cursor_state(2))
+    out["save_s"] = time.perf_counter() - t0
+    params, opt, m = step(params, opt, batch(2))
+    losses.append(float(m["loss"]))
+    t0 = time.perf_counter()
+    state, _, at = elastic_restore(str(tmp / "ckpt"), template, mesh)
+    out["load_s"] = time.perf_counter() - t0
+    p2, o2, m2 = step(state["params"], state["opt"], batch(2))
+    del state
+    pairs = list(zip(tree_leaves_with_path({"params": params, "opt": opt}),
+                     tree_leaves_with_path({"params": p2, "opt": o2})))
+    differ = [path_key(p) for (p, a), (_, b) in pairs
+              if not torch.equal(a, b)]
+    if differ or float(m2["loss"]) != losses[-1] or at != 2:
+        raise AssertionError(f"rank {rank}: the resume from step 2 differs "
+                             f"on {len(differ)} of {len(pairs)} leaves "
+                             f"({differ[:4]}), loss {float(m2['loss'])} "
+                             f"against {losses[-1]}")
+    out.update(losses=losses, leaves=len(pairs),
+               held_after=tm_held(step, template["params"], params, opt))
+    del p2, o2, pairs
+    torch.use_deterministic_algorithms(False)
+    empty_cache(dev)
+    reset_peak(dev)
+    times = []
+    for i in range(3, 3 + TM_TIMED):
+        b = batch(i)
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    stats = {"s": 0.0, "calls": {}, "bytes": 0}
+    b = batch(3 + TM_TIMED)
+    undo = tm_collectives(stats)
+    try:
+        dist.barrier()
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        sync()
+        stats["step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        undo()
+    out.update(ms=times, median=statistics.median(times), coll=stats,
+               peak_gib=peak_gib(dev), last_loss=float(m["loss"]))
+    del params, opt
+    empty_cache(dev)
+    if other is not None:
+        mesh2 = meshlib.make_process_mesh(other, ("data", "model"),
+                                          device=device)
+        step2 = trainer_on(mesh2).jitted_step(pipe.get_batch(0))
+        state, _, _ = elastic_restore(str(tmp / "ckpt"), template, mesh2)
+        specs2 = {"params": step2.in_specs[0], "opt": step2.in_specs[1]}
+        spec_of = {path_key(p): s for p, s in tree_leaves_with_path(
+            specs2, is_leaf=meshlib.is_spec)}
+        held = {path_key(p): t for p, t in tree_leaves_with_path(state)}
+        for key, w in tm_saved(tmp / "ckpt", 2):
+            for d, ax in enumerate(spec_of[key]):
+                if ax is not None:       # this rank's chunk along d
+                    w = torch.chunk(w, mesh2.count(ax), d)[mesh2.index(ax)]
+            if not torch.equal(held.pop(key).cpu(), w):
+                raise AssertionError(f"rank {rank}: elastic restore onto "
+                                     f"{other}: {key} is not its slice of "
+                                     "the saved leaf")
+        if held:
+            raise AssertionError(f"rank {rank}: restored leaves the "
+                                 f"checkpoint lacks: {sorted(held)}")
+        tm_held(step2, template["params"], state["params"], state["opt"])
+        _, _, m = step2(state["params"], state["opt"],
+                        meshlib.shard_tree(pipe.get_batch(2),
+                                           step2.in_specs[2], mesh2))
+        out["elastic_loss"] = float(m["loss"])
+        if not abs(out["elastic_loss"]) < float("inf"):
+            raise AssertionError(f"rank {rank}: the step after the elastic "
+                                 f"restore is not finite")
+        del state
+    return out
+
+
+def host_rss_gib() -> float:
+    """This process's resident host memory now (``VmRSS``). Its peak
+    (``ru_maxrss``) is no use in a spawned rank: it carries the parent's
+    over the fork, and the card's machine has no ``VmHWM``."""
+    for line in Path("/proc/self/status").read_text().splitlines():
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 2 ** 20
+    return 0.0
+
+
+def tm_check(rank, device, seed, what, cfg, shape, b, s):
+    """(b), (c): one f32 step of ``cfg`` on a process mesh of ``shape``
+    against the one-device step in float64 (rank 0, on ``ref_dev``): the
+    loss and the global norm within TRAIN_*_RTOL, every updated leaf
+    (params and AdamW's moments, which carry the clipped gradient),
+    gathered, within TRAIN_GRAD_REL_L2. Returns the rank's device peak
+    over the check, its largest resident host memory of the samples
+    taken after each stage and, on rank 0, the errors."""
+    import dataclasses
+    import torch
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.data import SyntheticTokenPipeline
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import make_train_step, shard_train_step
+    mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
+    dev = mesh.device
+    empty_cache(dev)
+    reset_peak(dev)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = SyntheticTokenPipeline(cfg, b, s, seed=seed,
+                                   device=dev).get_batch(0)
+    step = shard_train_step(model, mesh, params, None, batch)
+    ps, ospecs, bs = step.in_specs
+    p = meshlib.shard_tree(params, ps, mesh)
+    o = adamw_init(meshlib.shard_tree(params, ospecs["mu"], mesh),
+                   state_dtype="float32")
+    bb = meshlib.shard_tree(batch, bs, mesh)
+    host = host_rss_gib()
+    ref = None
+    if rank == 0:
+        # the one-device step in float64 (the EP path off; AdamW's math is
+        # f32 in every dtype, so its moments are kept in f32)
+        wide = dataclasses.replace(cfg, dtype="float64",
+                                   param_dtype="float64", moe_a2a=False)
+        ref_dev = dev if cfg.n_experts == 0 else torch.device("cpu")
+        to64 = lambda t: t.to(ref_dev, torch.float64) \
+            if t.is_floating_point() else t.to(ref_dev)
+        p64 = tree_map(to64, params)
+        b64 = {k: to64(v) for k, v in batch.items()}
+        del params
+        p64, o64, m64 = make_train_step(build_model(wide, device=ref_dev))(
+            p64, adamw_init(p64, state_dtype="float32"), b64)
+        ref = ({"p": p64, "o": o64}, {k: float(v) for k, v in m64.items()})
+        del p64, o64
+        host = max(host, host_rss_gib())
+    else:
+        del params
+    empty_cache(dev)
+    p, o, m = step(p, o, bb)
+    sync()
+    host = max(host, host_rss_gib())
+    worst = ("", 0.0)
+    specs = {"p": ps, "o": ospecs}
+    spec_of = dict(tree_leaves_with_path(specs, is_leaf=meshlib.is_spec))
+    want = dict(tree_leaves_with_path(ref[0])) if ref else None
+    for path, t in tree_leaves_with_path({"p": p, "o": o}):
+        whole = meshlib.whole_of(t, spec_of[path], mesh)
+        if want is not None and whole.is_floating_point():
+            w = want[path].to(whole.device, torch.float64)
+            err = float((whole.double() - w).norm()
+                        / w.norm().clamp(min=1e-300))
+            if err > worst[1] or not err == err:
+                worst = ("/".join(map(str, path)), err)
+        del whole
+    peaks = {"peak_gib": peak_gib(dev),
+             "host_gib": max(host, host_rss_gib())}
+    if ref is None:
+        return peaks
+    loss_err = abs(float(m["loss"]) - ref[1]["loss"]) / abs(ref[1]["loss"])
+    norm_err = abs(float(m["grad_norm"]) - ref[1]["grad_norm"]) \
+        / abs(ref[1]["grad_norm"])
+    log(f"phase 16 {what} on {shape}: f32 mesh step against the one-device "
+        f"float64 step: loss {float(m['loss']):.6f} (rel err "
+        f"{loss_err:.3e}), global norm {float(m['grad_norm']):.6f} (rel err "
+        f"{norm_err:.3e}), worst updated leaf rel L2 {worst[1]:.3e} "
+        f"({worst[0]})")
+    if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
+            and worst[1] <= TRAIN_GRAD_REL_L2):
+        raise AssertionError(
+            f"phase 16 {what} on {shape}: the mesh step is off the "
+            f"float64 step (loss {loss_err:.3e}, norm {norm_err:.3e}, "
+            f"leaf {worst[1]:.3e} at {worst[0]}; bounds {TRAIN_LOSS_RTOL}, "
+            f"{TRAIN_NORM_RTOL}, {TRAIN_GRAD_REL_L2})")
+    return {"loss": loss_err, "norm": norm_err, "leaf": worst, **peaks}
+
+
+def tm_rank(rank, world, backend, device, seed, tmp):
+    """One rank of phase 16 (spawned): (a) + (d), (b), (c); the kernels'
+    launch counters from 0 over the phase's work on this rank. A failure
+    is printed with the rank's traceback before it propagates (the spawn
+    names one failed rank only)."""
+    try:
+        return tm_phases(rank, world, backend, device, seed, tmp)
+    except BaseException:
+        import traceback
+        print(f"phase 16 rank {rank} of {backend}-{world} failed:\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
+
+
+def tm_phases(rank, world, backend, device, seed, tmp):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    gk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    qwen = get_config(TRAIN_ARCH)
+    cut = dataclasses.replace(qwen, n_layers=TM_GLOO_LAYERS) \
+        if backend == "gloo" else qwen
+    depth = "whole" if cut is qwen else f"{cut.n_layers} layers"
+    out = {"rank": rank, "depth": depth,
+           "a": tm_train(rank, device, seed, Path(tmp), cut)}
+    dev_shape = out["a"]["shape"]
+    empty_cache(torch.device(out["a"]["device"]))
+    t_a = time.perf_counter() - t0
+    f32 = dataclasses.replace(qwen, dtype="float32", param_dtype="float32")
+    b, s = TRAIN_CHECK_MESH
+    out["b"] = tm_check(rank, device, seed, f"(b) {TRAIN_ARCH} whole, "
+                        f"{b} x {s}", f32, dev_shape, b, s)
+    t_b = time.perf_counter() - t0 - t_a
+    b, s = TRAIN_FAMILY_CHECK
+    dbrx = get_config("dbrx-132b")
+    out["c"] = [tm_check(
+        rank, device, seed, f"(c) dbrx-132b reduced, EP, {world} experts, "
+        f"{b} x {s}", dataclasses.replace(dbrx.reduced(
+            n_experts=world, top_k=min(2, world)), moe_a2a=True),
+        (1, world), b, s)]
+    if world == 4:
+        out["c"].append(tm_check(
+            rank, device, seed, f"(c) dbrx-132b reduced, experts over "
+            f"model, capacity factor {TM_DROP_CF}, {b} x {s}",
+            dbrx.reduced(capacity_factor=TM_DROP_CF), (2, 2), b, s))
+    out["launches"] = {"row_table_gather": gk.launches,
+                       "row_table_rmw": sk.launches}
+    out["seconds"] = (t_a, t_b, time.perf_counter() - t0 - t_a - t_b)
+    return out
+
+
+def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
+    """The train step over a process mesh (``launch.mesh.RankMesh``), one
+    spawned process per rank, in phase 13's groups: tensor-parallel over
+    ``model``, data-parallel with ZeRO-1 over ``data``, every rank holding
+    only its shards. (a) Qwen3-0.6B whole (bf16, AdamW bf16 moments,
+    remat "full") at 8 x 512: a checkpoint at step 2 from the mesh, a
+    resume on the same mesh bit for bit, ``elastic_restore`` onto the
+    other shape (every leaf its slice of the saved leaf, one finite
+    step), each rank's bytes its shards'; (b) one f32 step of it at
+    TRAIN_CHECK_MESH against the one-device float64 step; (c) dbrx
+    reduced, EP over (1, world) and, at world 4, experts over ``model``
+    on (2, 2) with a capacity that drops tokens, likewise; (d) the warm
+    bf16 step of (a) (slowest rank, median of TM_TIMED) beside phase 12's,
+    tokens/s, peak per rank, collectives, bytes and their share of one
+    step; (e) B1/B2 launches 0 on every rank. Returns each kernel's
+    launches per group, one count per rank."""
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    log(f"reduced phase 16 gloo groups, (a) and (d): {TRAIN_ARCH} "
+        f"n_layers 28 -> {TM_GLOO_LAYERS} (widths kept; (b) whole)")
+    beside = (f"phase 12: {TRAIN_RESULTS['ms']:.3f} ms, peak "
+              f"{TRAIN_RESULTS['peak_gib']:.2f} GiB" if TRAIN_RESULTS
+              else "phase 12 not run")
+    for backend, world, device in groups:
+        world = torch.cuda.device_count() if world is None else world
+        name = f"{backend}-{world}"
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            ranks = run_ranks(tm_rank, world,
+                              args=(backend, device, seed, tmp),
+                              backend=backend,
+                              init_method=f"file://{tmp}/store",
+                              timeout=PM_COLLECTIVE_S,
+                              join_timeout=TM_JOIN_S)
+        wall = time.perf_counter() - t0
+        for k in out:
+            out[k][name] = [r["launches"][k] for r in ranks]
+            if any(out[k][name]):
+                raise AssertionError(f"phase 16 {name}: the train path "
+                                     f"launched {k} {out[k][name]}")
+        a = [r["a"] for r in ranks]
+        if len({tuple(x["losses"]) for x in a}) != 1:
+            raise AssertionError(f"phase 16 {name}: the ranks' losses "
+                                 f"differ: {[x['losses'] for x in a]}")
+        slowest = [max(x["ms"][i] for x in a) for i in range(TM_TIMED)]
+        ms = statistics.median(slowest)
+        coll = a[0]["coll"]
+        log(f"phase 16 {name} (a) Qwen3-0.6B {ranks[0]['depth']}, mesh "
+            f"{a[0]['shape']}: "
+            f"losses {' '.join(f'{x:.4f}' for x in a[0]['losses'])} on "
+            f"every rank; checkpoint at step 2 from the mesh "
+            f"({max(x['save_s'] for x in a):.1f} s), resumed on the same "
+            f"mesh bit for bit ({a[0]['leaves']} leaves a rank, load "
+            f"{max(x['load_s'] for x in a):.1f} s); elastic restore onto "
+            + (f"{a[0]['other']}: every leaf its slice, step loss "
+               f"{a[0]['elastic_loss']:.4f}" if a[0]["other"] else "(none "
+               "at world 1)")
+            + f"; params + moments held per rank "
+            f"{[round(x['held'] / 2 ** 30, 3) for x in a]} GiB (their "
+            "shards' bytes)")
+        log(f"phase 16 {name} (d) bf16 step, {ranks[0]['depth']}, 8 x 512: "
+            f"{ms:.3f} ms (slowest "
+            f"rank, median of {' '.join(f'{t:.3f}' for t in slowest)}), "
+            f"{8 * 512 / ms * 1e3:.1f} tokens/s; {beside}; peak per rank "
+            f"over those steps {[round(x['peak_gib'], 2) for x in a]} GiB; "
+            f"one counted step "
+            f"{coll['step_ms']:.3f} ms with each collective synchronised: "
+            f"{coll['calls']} per rank, {coll['bytes'] / 2 ** 20:.1f} MiB "
+            f"handed to them, {coll['s'] * 1e3:.3f} ms in them "
+            f"({100 * coll['s'] * 1e3 / coll['step_ms']:.1f}% of that "
+            f"step); devices {sorted({x['device'] for x in a})}")
+        log(f"phase 16 {name} (b) peak per rank over the f32 check "
+            f"(rank 0 also runs the one-device float64 step): device "
+            f"{[round(r['b']['peak_gib'], 2) for r in ranks]} GiB, host "
+            f"resident (the largest of its samples after each stage) "
+            f"{[round(r['b']['host_gib'], 2) for r in ranks]} GiB")
+        log(f"phase 16 {name}: B1/B2 launches per rank "
+            f"{[tuple(r['launches'].values()) for r in ranks]} (the train "
+            f"path calls no kernel); seconds per rank (a+d, b, c) "
+            f"{[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}; "
+            f"{wall:.1f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3734,6 +4227,7 @@ def main(argv=None) -> int:
     process_launches = phase_process_mesh(dev, args.seed, logical_ms)
     service_launches = phase_process_service(dev, args.seed)
     serving_launches = phase_process_serving(dev, args.seed)
+    train_mesh_launches = phase_train_mesh(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -3744,6 +4238,7 @@ def main(argv=None) -> int:
         row["process_mesh_launches"] = process_launches[row["name"]]
         row["process_service_launches"] = service_launches[row["name"]]
         row["process_serving_launches"] = serving_launches[row["name"]]
+        row["train_mesh_launches"] = train_mesh_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

@@ -23,22 +23,39 @@ def _children(tree) -> Optional[list]:
     return None
 
 
+# The walks are module-level functions: a nested function that calls
+# itself is a reference cycle (function -> closure cell -> function), and
+# it would keep ``fn``'s closure, often a dict of every leaf, alive until
+# the garbage collector runs.
+
+def _walk_leaves(node, path, is_leaf, out) -> None:
+    kids = None if is_leaf is not None and is_leaf(node) \
+        else _children(node)
+    if kids is None:
+        out.append((path, node))
+        return
+    for k, child in kids:
+        _walk_leaves(child, path + (k,), is_leaf, out)
+
+
+def _walk_map(fn, node, others, path, is_leaf):
+    if (is_leaf is not None and is_leaf(node)) or _children(node) is None:
+        return fn(path, node, *others)
+    if isinstance(node, dict):
+        return {k: _walk_map(fn, v, [o[k] for o in others], path + (k,),
+                             is_leaf)
+                for k, v in node.items()}
+    return type(node)(_walk_map(fn, v, [o[i] for o in others], path + (i,),
+                                is_leaf)
+                      for i, v in enumerate(node))
+
+
 def tree_leaves_with_path(tree, is_leaf: Optional[Callable] = None
                           ) -> List[Tuple[Path, Any]]:
     """``(path, leaf)`` pairs; a path is the tuple of dict keys and
     sequence indices from the root."""
     out = []
-
-    def walk(node, path):
-        kids = None if is_leaf is not None and is_leaf(node) \
-            else _children(node)
-        if kids is None:
-            out.append((path, node))
-            return
-        for k, child in kids:
-            walk(child, path + (k,))
-
-    walk(tree, ())
+    _walk_leaves(tree, (), is_leaf, out)
     return out
 
 
@@ -51,18 +68,7 @@ def tree_map_with_path(fn: Callable, tree, *rest,
     """``fn(path, leaf, *leaves of rest)`` over ``tree``'s leaves; the
     other trees must have ``tree``'s structure. Dicts keep their key
     order."""
-
-    def walk(node, others, path):
-        if (is_leaf is not None and is_leaf(node)) or \
-                _children(node) is None:
-            return fn(path, node, *others)
-        if isinstance(node, dict):
-            return {k: walk(v, [o[k] for o in others], path + (k,))
-                    for k, v in node.items()}
-        return type(node)(walk(v, [o[i] for o in others], path + (i,))
-                          for i, v in enumerate(node))
-
-    return walk(tree, list(rest), ())
+    return _walk_map(fn, tree, list(rest), (), is_leaf)
 
 
 def tree_map(fn: Callable, tree, *rest, is_leaf: Optional[Callable] = None):

@@ -7,7 +7,8 @@ mesh scale), the port of the JAX package's ``repro.distributed``:
                 group, each rank's table slice on its own device
   exchange      owner partitioning, pre-exchange dedup/combine and the
                 index codecs, batched over a leading shard axis; the
-                process mesh's collectives (``all_to_all``, ``all_gather``)
+                process mesh's collectives (``all_to_all``, ``all_gather``,
+                and the train step's ``all_reduce``, ``reduce_scatter``)
   engine        ShardedEngine — a drop-in Engine whose bulk gather /
                 scatter-RMW streams span the mesh, owner-local work on the
                 row-table kernels; ``gather_blocks`` reassembles a process
@@ -31,11 +32,13 @@ On a process mesh (one process per rank, e.g. ``torchrun
 from repro_torch.distributed.engine import (ExchangeInflight, ShardedEngine,
                                             ShardStats, gather_blocks)
 from repro_torch.distributed.exchange import (CODECS, Exchange, all_gather,
-                                              all_to_all, bucket_capacity,
+                                              all_reduce, all_to_all,
+                                              bucket_capacity,
                                               combine_duplicates,
                                               dedup_stream,
                                               masked_unique_count,
-                                              partition_by_owner)
+                                              partition_by_owner,
+                                              reduce_scatter)
 from repro_torch.distributed.mesh import (Mesh, ProcessMesh, as_mesh,
                                           device_mesh, process_mesh,
                                           shard_row_ranges)
@@ -45,5 +48,6 @@ __all__ = [
     "device_mesh", "as_mesh", "shard_row_ranges", "partition_by_owner",
     "masked_unique_count", "dedup_stream", "combine_duplicates", "CODECS",
     "bucket_capacity", "ProcessMesh", "process_mesh", "gather_blocks",
-    "all_to_all", "all_gather", "Exchange",
+    "all_to_all", "all_gather", "all_reduce", "reduce_scatter",
+    "Exchange",
 ]

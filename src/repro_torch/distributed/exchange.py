@@ -25,10 +25,13 @@ Payloads carry row axes after the lane axis. No function synchronises
 with the device: every shape is static.
 
 The collectives (``all_to_all``, ``all_gather``) move bytes: any dtype
-travels as its uint8 view, which every backend carries. On an "nccl"
-group CUDA tensors go directly; on a "gloo" group CPU tensors go directly
-and CUDA tensors through pinned host buffers (``transport``). The group's
-backend decides, once; nothing switches backend on a failure.
+travels as its uint8 view, which every backend carries. The reductions
+(``all_reduce``, ``reduce_scatter``: the train step's tensor- and
+data-parallel sums) cannot: they travel in the tensor's own dtype. On an
+"nccl" group CUDA tensors go directly; on a "gloo" group CPU tensors go
+directly and CUDA tensors through pinned host buffers (``transport``).
+The group's backend decides, once; nothing switches backend on a
+failure.
 """
 from __future__ import annotations
 
@@ -517,3 +520,55 @@ def all_gather_object(obj, mesh) -> list:
     got = all_gather(pad, mesh).cpu()
     return [pickle.loads(got[r, :s].numpy().tobytes())
             for r, s in enumerate(sizes)]
+
+
+_REDUCE_OPS = {"sum": "SUM", "max": "MAX"}
+
+
+def _reduction(mesh, x: torch.Tensor, out_shape, issue) -> torch.Tensor:
+    """Run ``issue(out, in)`` over ``x`` in its own dtype on the mesh's
+    transport; the result (``out_shape``, ``x``'s dtype) is on ``x``'s
+    device and ``x`` is left as it was."""
+    way = transport(mesh, x.device)
+    if way == "gloo+host":
+        src = torch.empty(tuple(x.shape), dtype=x.dtype, pin_memory=True)
+        src.copy_(x)
+    else:
+        src = x.contiguous().clone()
+    dst = src if out_shape is None else torch.empty(
+        tuple(out_shape), dtype=x.dtype, device=src.device,
+        pin_memory=way == "gloo+host")
+    issue(dst, src).wait()
+    return dst.to(x.device, non_blocking=True) if way == "gloo+host" \
+        else dst
+
+
+def all_reduce(x: torch.Tensor, mesh, op: str = "sum") -> torch.Tensor:
+    """The elementwise ``op`` ("sum" or "max") of every rank's ``x`` (same
+    shape on all), on every rank."""
+    import torch.distributed as dist
+    red = getattr(dist.ReduceOp, _REDUCE_OPS[op])
+
+    def issue(dst, src):
+        return dist.all_reduce(dst, op=red, group=mesh.group, async_op=True)
+    return _reduction(mesh, x, None, issue)
+
+
+def reduce_scatter(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The sum over ranks of ``x`` (``(m * n, ...)``, same shape on all),
+    of which this rank keeps rows ``[rank * n, (rank + 1) * n)``."""
+    import torch.distributed as dist
+    m = int(mesh.num_shards)
+    if int(x.shape[0]) % m:
+        raise ValueError(f"{x.shape[0]} rows do not split into {m} equal "
+                         "blocks")
+    out_shape = (int(x.shape[0]) // m,) + tuple(x.shape[1:])
+
+    # reduce_scatter_single is reduce_scatter_tensor's newer name
+    rs = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+
+    def issue(dst, src):
+        return rs(dst, src, op=dist.ReduceOp.SUM, group=mesh.group,
+                  async_op=True)
+    return _reduction(mesh, x, out_shape, issue)

@@ -8,18 +8,28 @@ Mesh axes: (pod, data, model).
   pod   : second DP axis across pods (gradient all-reduce crosses it once
           per step; int8 compression available, optim/compress.py)
 
-The port of the JAX package's ``launch.mesh``. The mesh is *logical*, as
-``repro_torch.distributed.mesh``'s: named axes and their sizes over one
-torch device, which holds every tensor whole. The rules compute the same
-specs as the reference's: a spec is a tuple with one entry per dimension,
-an axis name, a tuple of axis names or None, equal entry for entry to the
-reference's ``PartitionSpec``. Running a step under them changes no
-result (GSPMD runs the same function), so the port checks the specs and
-runs the step on the mesh's device. A mesh over more than one CUDA device
-needs ``torch.distributed`` and raises ``NotImplementedError``.
+The port of the JAX package's ``launch.mesh``. Two kinds of mesh:
+
+  Mesh      *logical*, as ``repro_torch.distributed.mesh``'s: named axes
+            and their sizes over one torch device, which holds every
+            tensor whole. Running a step under the specs changes no
+            result (GSPMD runs the same function), so the port checks the
+            specs and runs the step on the mesh's device.
+  RankMesh  one position per rank of a ``torch.distributed`` group
+            (``make_process_mesh``): rank ``r`` sits at the row-major
+            coordinates of position ``r``, as ``jax.make_mesh`` orders its
+            devices, holds only its shards (``shard_tree``) on its own
+            device, and reaches the ranks along each axis through one
+            subgroup per axis line (``RankMesh.line``). The train step
+            runs SPMD over it (``train.trainer.shard_train_step``).
+
+The rules compute the same specs as the reference's on both: a spec is a
+tuple with one entry per dimension, an axis name, a tuple of axis names
+or None, equal entry for entry to the reference's ``PartitionSpec``.
 
 ``set_mesh`` makes a mesh ambient, as ``jax.sharding.set_mesh`` does; the
-MoE layer's expert-parallel path reads it (``models.moe.moe_ffn_auto``).
+MoE layer's expert-parallel path and, on a ``RankMesh``, the layers'
+tensor-parallel paths read it (``models.parallel``).
 """
 from __future__ import annotations
 
@@ -83,18 +93,139 @@ class NamedSharding:
 def make_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str], *,
               device=None, devices: Optional[Sequence] = None) -> Mesh:
     """A logical mesh on ``device`` (None = CUDA). ``devices`` (as
-    ``jax.make_mesh`` takes) may name one device only: a mesh over more
-    than one CUDA device needs ``torch.distributed``."""
+    ``jax.make_mesh`` takes) may name one device only: a mesh over several
+    devices is one process per device over torch.distributed
+    (``make_process_mesh``)."""
     if devices is not None:
         devs = {torch.device(d) for d in devices}
         if len(devs) > 1:
             raise NotImplementedError(
-                f"a mesh over {len(devs)} devices needs torch.distributed "
-                "(DTensor/FSDP, ROADMAP A14c); the port's training mesh is "
-                "logical over one device")
+                f"a mesh over {len(devs)} devices runs one process per "
+                "device over torch.distributed: call make_process_mesh on "
+                "every rank; make_mesh builds a logical mesh over one "
+                "device")
         (device,) = devs
     return Mesh(tuple(int(n) for n in axis_sizes), tuple(axis_names),
                 resolve_device(device))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class RankMesh:
+    """This rank's place in a mesh whose positions are the ranks of a
+    ``torch.distributed`` group.
+
+    ``coords`` this rank's coordinates (row-major position ``rank``),
+    ``device`` where its shards live, ``backend`` the group's. ``lines``
+    maps an axis name, or the tuple of the data-parallel axes, to the 1-D
+    ``distributed.ProcessMesh`` over the ranks that differ from this one
+    along those axes only (None where they number one), in the axes'
+    composite order."""
+    axis_sizes: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    device: torch.device
+    rank: int
+    backend: str
+    coords: Tuple[int, ...]
+    lines: dict
+
+    @property
+    def shape(self) -> dict:
+        return dict(zip(self.axis_names, self.axis_sizes))
+
+    @property
+    def devices(self) -> np.ndarray:
+        """The rank at every mesh position, shaped like the mesh."""
+        return np.arange(self.size).reshape(self.axis_sizes)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.axis_sizes))
+
+    def index(self, axes) -> int:
+        """This rank's index along ``axes`` (a name or a tuple of names,
+        composite in row-major order)."""
+        idx = 0
+        for a in _names(axes):
+            i = self.axis_names.index(a)
+            idx = idx * self.axis_sizes[i] + self.coords[i]
+        return idx
+
+    def count(self, axes) -> int:
+        """The number of positions along ``axes``."""
+        return int(np.prod([self.shape[a] for a in _names(axes)]))
+
+    def line(self, axes):
+        """The 1-D process mesh along ``axes``; None where it is one rank."""
+        return self.lines[_key(axes)]
+
+    @property
+    def dp_axes(self) -> tuple:
+        return tuple(batch_axes(self))
+
+
+def _names(axes) -> tuple:
+    """An axis entry of a spec (a name or a tuple of names) as a tuple."""
+    return (axes,) if isinstance(axes, str) else tuple(axes)
+
+
+def _key(axes):
+    """The ``RankMesh.lines`` key of ``axes``: a name, or a tuple of
+    several names."""
+    return axes if isinstance(axes, str) or len(axes) > 1 else axes[0]
+
+
+def _line_keys(axis_names) -> list:
+    """Every axis, then the composite data-parallel axes where there are
+    several: the lines a rank mesh builds, in the order every rank builds
+    them."""
+    dp = tuple(a for a in ("pod", "data") if a in axis_names)
+    return list(axis_names) + ([dp] if len(dp) > 1 else [])
+
+
+def make_process_mesh(axis_sizes: Sequence[int], axis_names: Sequence[str],
+                      device=None) -> RankMesh:
+    """This rank's ``RankMesh`` over the initialised default group; every
+    rank calls it, with the same arguments. The mesh's size must be the
+    world size. ``device`` defaults to
+    this rank's card (``cuda:{LOCAL_RANK}``, or ``rank % device_count``);
+    pass ``device="cpu"`` for a gloo group on the CPU. Builds one subgroup
+    per line of each axis (and of the composite data-parallel axes), every
+    rank all of them in the same order."""
+    import torch.distributed as dist
+    from repro_torch.distributed.mesh import ProcessMesh, _rank_device
+    if not (dist.is_available() and dist.is_initialized()):
+        raise RuntimeError(
+            "make_process_mesh needs an initialised torch.distributed "
+            "group: call torch.distributed.init_process_group first "
+            "(torchrun sets the rendezvous variables)")
+    sizes = tuple(int(n) for n in axis_sizes)
+    names = tuple(axis_names)
+    if len(sizes) != len(names):
+        raise ValueError(f"{len(names)} axis names for {len(sizes)} axis "
+                         "sizes")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    if int(np.prod(sizes)) != world:
+        raise ValueError(f"a mesh of {sizes} ({int(np.prod(sizes))} "
+                         f"positions) over a group of {world} ranks")
+    dev = _rank_device(rank) if device is None else resolve_device(device)
+    backend = str(dist.get_backend()).lower()
+    coords = tuple(int(c) for c in np.unravel_index(rank, sizes))
+    ranks = np.arange(world).reshape(sizes)
+    lines = {}
+    for key in _line_keys(names):
+        axes = _names(key)
+        dims = [names.index(a) for a in axes]
+        n = int(np.prod([sizes[d] for d in dims]))
+        if n == 1:
+            lines[key] = None
+            continue
+        rows = np.moveaxis(ranks, dims, range(-len(dims), 0)).reshape(-1, n)
+        for row in rows:
+            g = dist.new_group(ranks=[int(r) for r in row])
+            if rank in row:
+                lines[key] = ProcessMesh(g, row.tolist().index(rank), n,
+                                         dev, backend, "+".join(axes))
+    return RankMesh(sizes, names, dev, rank, backend, coords, lines)
 
 
 def make_production_mesh(*, multi_pod: bool = False, device=None) -> Mesh:
@@ -282,3 +413,62 @@ def cache_specs(cache_tree, mesh, batch: int, *,
         return tuple(s)
 
     return tree_map(spec, cache_tree)
+
+
+# ---------------------------------------------------------------------------
+# a rank's shards of a tree, and back (``RankMesh``)
+# ---------------------------------------------------------------------------
+
+def _dims(spec, ndim: int):
+    """``(dim, axes)`` of every sharded dimension of a spec."""
+    spec = tuple(spec) + (None,) * (ndim - len(spec))
+    return [(d, ax) for d, ax in enumerate(spec[:ndim]) if ax is not None]
+
+
+def shard_shape(shape, spec, mesh: RankMesh) -> tuple:
+    """The shape of a rank's block of a whole ``shape`` under ``spec``."""
+    out = list(shape)
+    for d, ax in _dims(spec, len(out)):
+        out[d] //= mesh.count(ax)
+    return tuple(out)
+
+
+def shard_of(t: torch.Tensor, spec, mesh: RankMesh) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``spec``, a new
+    contiguous tensor on the mesh's device (never a view of ``t``)."""
+    block = t
+    for d, ax in _dims(spec, t.ndim):
+        n = mesh.count(ax)
+        if block.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(t.shape)} does not split "
+                             f"over {ax} ({n})")
+        size = block.shape[d] // n
+        block = block.narrow(d, mesh.index(ax) * size, size)
+    out = torch.empty(tuple(block.shape), dtype=t.dtype, device=mesh.device)
+    return out.copy_(block)
+
+
+def shard_tree(tree, specs, mesh: RankMesh):
+    """Every whole leaf of ``tree`` cut to this rank's block under the
+    spec tree ``specs`` (an axis tuple such as ``('pod', 'data')`` is the
+    composite index), on the mesh's device."""
+    return tree_map(lambda s, t: shard_of(torch.as_tensor(t), s, mesh),
+                    specs, tree, is_leaf=is_spec)
+
+
+def whole_of(t: torch.Tensor, spec, mesh: RankMesh) -> torch.Tensor:
+    """The whole tensor of which ``t`` is this rank's block under
+    ``spec``: one all-gather along each sharded dimension."""
+    from repro_torch.distributed import exchange
+    for d, ax in _dims(spec, t.ndim):
+        line = mesh.line(ax)
+        if line is not None:
+            t = torch.cat(list(exchange.all_gather(t.contiguous(), line)),
+                          dim=d)
+    return t
+
+
+def gather_tree(tree, specs, mesh: RankMesh):
+    """Whole leaves from this rank's blocks (every rank gets them)."""
+    return tree_map(lambda s, t: whole_of(t, s, mesh), specs, tree,
+                    is_leaf=is_spec)

@@ -16,6 +16,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel as P
+
 _NEG = -1e30                          # the reference's mask value
 
 
@@ -154,6 +156,17 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
                      = #valid entries; x is (B, s, D). The new K/V are
                      written into ck/cv in place; returns (out, (ck, cv)).
     """
+    mesh = P.rank_mesh()
+    if P.model_split(mesh) > 1:
+        if kv is not None or cache is not None:
+            raise NotImplementedError(
+                "attention over a process mesh's model axis runs the "
+                "training forward only (no cache, no cross-attention)")
+        return _attention_tp(
+            p, x, mesh, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
+            positions=positions, theta=theta, window=window, causal=causal,
+            mrope_sections=mrope_sections, positions3=positions3,
+            packed_gqa=packed_gqa)
     b, s, d = x.shape
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
     if "q_norm" in p:
@@ -185,21 +198,7 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
         new_cache = (ck, cv)
         k, v = ck, cv
 
-    n_rep = n_heads // n_kv
-    scale = head_dim ** -0.5
     skv = k.shape[1]
-    if packed_gqa:
-        # grouped einsum: KV stays un-replicated and in its storage dtype;
-        # products of storage-dtype values accumulated in f32
-        qg = q.reshape(b, s, n_kv, n_rep, head_dim)
-        logits = torch.einsum("bqkrd,bskd->bkrqs", acc(qg),
-                              acc(k)) * scale
-    else:
-        kf = _repeat_kv(k, n_rep)
-        vf = _repeat_kv(v, n_rep)
-        logits = torch.einsum("bqhd,bkhd->bhqk", acc(q),
-                              acc(kf)) * scale
-
     dev = x.device
     m = None
     if cache is not None:
@@ -215,23 +214,131 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     elif causal and kv is None:
         m = _causal_mask(s, skv, window=window, device=dev)
 
+    out = _attend(q, k, v, m, packed_gqa=packed_gqa, dtype=x.dtype)
+    out = out @ p["wo"]
+    if cache is not None:
+        return out, new_cache
+    return out
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            m: Optional[torch.Tensor], *, packed_gqa: bool,
+            dtype) -> torch.Tensor:
+    """Softmax attention of q (B, S, H, hd) over k, v (B, Skv, K, hd),
+    query head h reading kv head h // (H / K); ``m`` (S, Skv) the mask or
+    None. Returns (B, S, H * hd) in ``dtype``."""
+    b, s, n_heads, head_dim = q.shape
+    n_kv = k.shape[2]
+    n_rep = n_heads // max(n_kv, 1)   # a mesh rank may compute no head
+    scale = head_dim ** -0.5
     if packed_gqa:
+        # grouped einsum: KV stays un-replicated and in its storage dtype;
+        # products of storage-dtype values accumulated in f32
+        qg = q.reshape(b, s, n_kv, n_rep, head_dim)
+        logits = torch.einsum("bqkrd,bskd->bkrqs", acc(qg),
+                              acc(k)) * scale
         if m is not None:
             logits = torch.where(m[None, None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bkrqs,bskd->bqkrd", acc(w.to(v.dtype)),
                            acc(v))
-        out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
     else:
+        kf = _repeat_kv(k, n_rep)
+        vf = _repeat_kv(v, n_rep)
+        logits = torch.einsum("bqhd,bkhd->bhqk", acc(q),
+                              acc(kf)) * scale
         if m is not None:
             logits = torch.where(m[None, None], logits, _NEG)
         w = torch.softmax(logits, dim=-1)
         out = torch.einsum("bhqk,bkhd->bqhd", w, acc(vf))
-        out = out.reshape(b, s, n_heads * head_dim).to(x.dtype)
-    out = out @ p["wo"]
-    if cache is not None:
-        return out, new_cache
-    return out
+    return out.reshape(b, s, n_heads * head_dim).to(dtype)
+
+
+def _columns(xc: torch.Tensor, w: torch.Tensor, full: int, lo: int,
+             hi: int, mesh, lines_up: bool) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of ``x @ W`` for a weight of ``full`` columns
+    that ``param_specs`` cuts over ``model`` or leaves whole; ``xc`` is x
+    after ``parallel.copy``. A cut weight gives the rank's own columns
+    when ``lines_up`` (every rank needs only its own: no collective), else
+    all-gathers them (the gradient returns as a reduce-scatter). A whole
+    weight is itself ``copy``-ed: each rank uses part of it."""
+    if not P.sharded(w.shape[-1], full):
+        return xc @ P.copy(w, mesh)[..., lo:hi]
+    if lines_up:
+        return xc @ w
+    return P.gather_last(xc @ w, mesh)[..., lo:hi]
+
+
+def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
+                  n_kv: int, head_dim: int, positions: torch.Tensor,
+                  theta: float, window: Optional[int], causal: bool,
+                  mrope_sections: Optional[tuple],
+                  positions3: Optional[torch.Tensor], packed_gqa: bool):
+    """Training attention on a process mesh's ``model`` line.
+
+    The specs cut columns, not heads, so the rank computes whole heads:
+    those its output columns touch (its rows of ``wo``; where ``wo`` is
+    whole, a share of whole kv groups, none for a rank past the last
+    group), widened to whole kv groups (query
+    head h reads kv head h // n_rep). Where ``model`` divides the query
+    and kv heads the rank's columns of ``wq``/``wk``/``wv`` are exactly
+    those heads (Megatron's split: one ``copy`` in, one ``reduce`` out);
+    elsewhere the rank all-gathers the columns its heads need. Every rank
+    decides alike: the collectives must match."""
+    b, s, _ = x.shape
+    ms, c = P.model_split(mesh), mesh.index("model")
+    n_rep = n_heads // n_kv
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
+
+    def out_cols(r):
+        if P.sharded(p["wo"].shape[-2], nq):
+            return r * nq // ms, (r + 1) * nq // ms
+        per = -(-n_kv // ms)
+        g0, g1 = min(r * per, n_kv), min((r + 1) * per, n_kv)
+        return g0 * n_rep * head_dim, g1 * n_rep * head_dim
+
+    def groups(r):               # the kv groups rank r computes
+        lo, hi = out_cols(r)
+        h0, h1 = lo // head_dim, -(-hi // head_dim)
+        return h0 // n_rep, -(-h1 // n_rep)
+
+    def lines_up(width, full):   # every rank's groups are its own columns
+        return all(tuple(x * width for x in groups(r)) ==
+                   (r * full // ms, (r + 1) * full // ms)
+                   for r in range(ms))
+
+    g0, g1 = groups(c)
+    xc = P.copy(x, mesh)
+    q = _columns(xc, p["wq"], nq, g0 * n_rep * head_dim,
+                 g1 * n_rep * head_dim, mesh,
+                 lines_up(n_rep * head_dim, nq))
+    kv_up = lines_up(head_dim, nkv)
+    k = _columns(xc, p["wk"], nkv, g0 * head_dim, g1 * head_dim, mesh,
+                 kv_up)
+    v = _columns(xc, p["wv"], nkv, g0 * head_dim, g1 * head_dim, mesh,
+                 kv_up)
+    q = q.reshape(b, s, (g1 - g0) * n_rep, head_dim)
+    k = k.reshape(b, s, g1 - g0, head_dim)
+    v = v.reshape(b, s, g1 - g0, head_dim)
+    if "q_norm" in p:
+        q = rms_norm(q, P.copy(p["q_norm"], mesh))
+    if "k_norm" in p:
+        k = rms_norm(k, P.copy(p["k_norm"], mesh))
+    if mrope_sections is not None:
+        q = apply_mrope(q, positions3, theta, mrope_sections)
+        k = apply_mrope(k, positions3, theta, mrope_sections)
+    else:
+        q = apply_rope(q, positions, theta)
+        k = apply_rope(k, positions, theta)
+    m = _causal_mask(s, s, window=window, device=x.device) if causal \
+        else None
+    out = _attend(q, k, v, m, packed_gqa=packed_gqa, dtype=x.dtype)
+    lo, hi = out_cols(c)
+    base = g0 * n_rep * head_dim
+    out = out[..., lo - base:hi - base]
+    wo = p["wo"] if P.sharded(p["wo"].shape[-2], nq) \
+        else P.copy(p["wo"], mesh)[..., lo:hi, :]
+    return P.reduce(out @ wo, mesh)
 
 
 def cross_kv(p: dict, enc_out: torch.Tensor, *, n_kv: int, head_dim: int):
@@ -256,5 +363,16 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int,
     }
 
 
-def mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp(p: dict, x: torch.Tensor, d_ff: Optional[int] = None
+        ) -> torch.Tensor:
+    """SwiGLU. On a process mesh whose ``model`` axis cuts the ``d_ff``
+    columns (``d_ff`` the full width), Megatron's split: ``copy``, the
+    rank's columns of ``w_gate``/``w_up`` and rows of ``w_down``, then
+    ``reduce``."""
+    mesh = P.rank_mesh()
+    if d_ff is not None and P.model_split(mesh) > 1 and \
+            P.sharded(p["w_gate"].shape[-1], d_ff):
+        xc = P.copy(x, mesh)
+        h = F.silu(xc @ p["w_gate"]) * (xc @ p["w_up"])
+        return P.reduce(h @ p["w_down"], mesh)
     return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]

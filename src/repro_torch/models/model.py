@@ -27,21 +27,47 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core.device import resolve_device
 from repro_torch.models import encdec as ED
 from repro_torch.models import hybrid as HY
+from repro_torch.models import parallel as P
 from repro_torch.models import rwkv_lm as RW
 from repro_torch.models import transformer as TF
 from repro_torch.models.layers import acc
 
 
 def softmax_xent(logits: torch.Tensor, labels: torch.Tensor,
-                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean next-token cross-entropy; logits (B,S,V), labels (B,S)."""
+                 mask: Optional[torch.Tensor] = None, *,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """Mean next-token cross-entropy; logits (B,S,V), labels (B,S).
+
+    On a process mesh (``models.parallel``) ``logits`` may be the rank's
+    vocabulary columns of ``vocab`` (the tied head's ``model`` cut): the
+    log-sum-exp takes its maximum and sum over ``model``, the gold logit
+    comes from the rank that owns the label. The mean is over the global
+    batch: the sum and the count are summed over the data-parallel axes
+    (nothing where the batch is whole on every rank), never a mean of
+    the shards' means."""
+    mesh = P.rank_mesh()
     logits = acc(logits)
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    v = logits.shape[-1]
+    if vocab is not None and P.sharded(v, vocab):
+        top = P.all_max(logits.amax(dim=-1), mesh)
+        sumexp = torch.exp(logits - top[..., None]).sum(dim=-1)
+        logz = top + torch.log(P.reduce(sumexp, mesh))
+        row = labels.long() - mesh.index("model") * v
+        own = (row >= 0) & (row < v)
+        gold = torch.gather(logits, -1, row.clamp(0, v - 1)[..., None])
+        gold = P.reduce(torch.where(own, gold[..., 0], 0.0), mesh)
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is not None:
-        return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1)
-    return torch.mean(nll)
+        total = P.reduce(torch.sum(nll * mask), mesh, "dp")
+        count = P.all_sum(torch.sum(mask), mesh, "dp")
+        return total / torch.clamp(count, min=1)
+    total = P.reduce(torch.sum(nll), mesh, "dp")
+    count = P.all_sum(torch.tensor(float(nll.numel()), device=nll.device),
+                      mesh, "dp")
+    return total / count.to(total.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +86,8 @@ class Model:
         mask = batch.get("loss_mask")
         if mask is not None:
             mask = torch.as_tensor(mask, device=logits.device)
-        return softmax_xent(logits, labels, mask) + 0.01 * aux
+        return softmax_xent(logits, labels, mask, vocab=self.cfg.vocab) \
+            + 0.01 * aux
 
 
 def _generator(seed_or_gen, device: torch.device) -> torch.Generator:

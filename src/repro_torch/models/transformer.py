@@ -83,14 +83,14 @@ def _layer(p, x, *, cfg: ModelConfig, positions, positions3=None,
             capacity_factor=cfg.capacity_factor, use_ep=cfg.moe_a2a)
         aux = M.moe_aux_loss(router_logits, cfg.n_experts, cfg.top_k)
     else:
-        ffn_out = L.mlp(p["mlp"], h)
+        ffn_out = L.mlp(p["mlp"], h, d_ff=cfg.d_ff)
     return x + ffn_out, new_cache, aux
 
 
 def embed_tokens(params, tokens, cfg: ModelConfig):
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
     x = emb.embed_lookup(params["embed"], tokens, cfg.dx100_embed_fwd,
-                         cfg.dx100_embed_bwd)
+                         cfg.dx100_embed_bwd, vocab=cfg.vocab)
     return tokens, x.to(cfg.activation_dtype)
 
 
@@ -132,7 +132,7 @@ def lm_forward(params, batch: dict, cfg: ModelConfig):
     x = L.rms_norm(x, params["final_norm"])
     if "patch_embeds" in batch:
         x = x[:, -tokens.shape[1]:, :]   # logits only over text positions
-    logits = emb.logits_out(params["embed"], x)
+    logits = emb.logits_out(params["embed"], x, vocab=cfg.vocab)
     return logits, aux / max(cfg.n_layers, 1)
 
 

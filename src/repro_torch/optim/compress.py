@@ -66,10 +66,41 @@ def _acc(g: torch.Tensor) -> torch.Tensor:
     return g.to(torch.promote_types(g.dtype, torch.float32))
 
 
-def global_norm_clip(grads, max_norm: float = 1.0):
+def _axes(spec) -> tuple:
+    """The mesh axes that shard a leaf under ``spec``."""
+    names = set()
+    for entry in spec:
+        if entry is not None:
+            names.update((entry,) if isinstance(entry, str) else entry)
+    return tuple(sorted(names))
+
+
+def global_norm_clip(grads, max_norm: float = 1.0, *, specs=None,
+                     mesh=None):
     """Scale every leaf by min(1, max_norm / ||grads||); returns
-    (clipped grads, the global norm before clipping)."""
-    norm = torch.sqrt(sum(torch.sum(torch.square(_acc(g)))
-                          for g in tree_leaves(grads)))
+    (clipped grads, the global norm before clipping).
+
+    On a process mesh (``mesh`` a ``launch.mesh.RankMesh``, ``specs`` the
+    gradient tree's specs, each leaf the rank's block) each leaf's squared
+    norm is summed over the axes that shard it, once: a leaf every rank
+    holds whole counts once, not once per rank."""
+    from repro_torch.launch.mesh import is_spec
+    leaves = tree_leaves(grads)
+    keys = [()] * len(leaves) if mesh is None else \
+        [_axes(s) for s in tree_leaves(specs, is_leaf=is_spec)]
+    parts = {}
+    for g, key in zip(leaves, keys):
+        sq = torch.sum(torch.square(_acc(g)))
+        parts[key] = parts[key] + sq if key in parts else sq
+    total = 0
+    for key in sorted(parts):                # the same order on every rank
+        sq = parts[key]
+        for axis in key:
+            line = mesh.line(axis)
+            if line is not None:
+                from repro_torch.distributed import exchange
+                sq = exchange.all_reduce(sq, line)
+        total = total + sq
+    norm = torch.sqrt(total)
     factor = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     return tree_map(lambda g: (_acc(g) * factor).to(g.dtype), grads), norm

@@ -22,6 +22,12 @@ SHA-256 prefixes of the stored bytes. A checkpoint written by either
 package loads in the other. Loaded leaves are tensors on the template
 leaf's device (the CPU where the template holds no tensor), or where
 ``shardings`` places them.
+
+From a process mesh (``launch.mesh.RankMesh``), ``save_checkpoint`` with
+``mesh=`` and ``specs=`` gathers whole leaves, one at a time, and rank 0
+writes exactly the one-device files and manifest while the other ranks
+wait at a barrier; ``train.elastic.elastic_restore`` reads whole leaves
+on every rank and cuts each rank's shards for any mesh.
 """
 from __future__ import annotations
 
@@ -69,7 +75,16 @@ def _hash(arr: np.ndarray) -> str:
 
 def save_checkpoint(directory: str, step: int, state: Any, *,
                     extra: Optional[dict] = None, keep_last: int = 3,
-                    shard_bytes: int = 512 << 20) -> str:
+                    shard_bytes: int = 512 << 20, mesh=None,
+                    specs=None) -> str:
+    """Write ``state`` as ``<directory>/step_<step>``; returns that path.
+    With ``mesh`` a process mesh, ``state`` holds this rank's shards under
+    the spec tree ``specs`` and every rank of the mesh calls it."""
+    if mesh is not None:
+        return _save_from_ranks(directory, step, state, extra=extra,
+                                keep_last=keep_last,
+                                shard_bytes=shard_bytes, mesh=mesh,
+                                specs=specs)
     flat = {path_key(p): leaf for p, leaf in tree_leaves_with_path(state)}
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
@@ -107,6 +122,30 @@ def save_checkpoint(directory: str, step: int, state: Any, *,
         shutil.rmtree(os.path.join(directory, f"step_{old}"),
                       ignore_errors=True)
     return final
+
+
+def _save_from_ranks(directory, step, state, *, extra, keep_last,
+                     shard_bytes, mesh, specs) -> str:
+    """Gather every leaf whole (on the host of rank 0 only), write as one
+    device would on rank 0, and hold every rank at a barrier until the
+    step is published."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import is_spec, whole_of
+    spec_of = dict(tree_leaves_with_path(specs, is_leaf=is_spec))
+    whole = {}
+    for p, leaf in tree_leaves_with_path(state):
+        t = whole_of(leaf, spec_of[p], mesh)
+        if mesh.rank == 0:
+            whole[p] = t.cpu()
+        del t
+    path = os.path.join(directory, f"step_{step}")
+    if mesh.rank == 0:
+        path = save_checkpoint(
+            directory, step, tree_map_with_path(lambda p, _: whole[p],
+                                                state),
+            extra=extra, keep_last=keep_last, shard_bytes=shard_bytes)
+    dist.barrier()
+    return path
 
 
 def latest_step(directory: str) -> Optional[int]:

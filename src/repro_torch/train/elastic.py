@@ -6,14 +6,18 @@ reloads the last checkpoint onto the new mesh, and adjusts the data
 pipeline's shard count. Checkpoints store whole leaves, so any (old mesh
 -> new mesh) transition is a placement.
 
-The port of the JAX package's ``train.elastic``. The port's meshes are
-logical over one device (``launch.mesh``), so the restore loads every
-leaf onto the new mesh's device under the specs the reference computes.
+The port of the JAX package's ``train.elastic``. On a logical mesh
+(``launch.mesh.Mesh``) the restore loads every leaf onto the new mesh's
+device under the specs the reference computes. On a process mesh
+(``launch.mesh.RankMesh``) every rank reads the whole leaves on its host
+and keeps its shards under the new mesh's specs (``shard_tree``): the
+reference's ``device_put`` of whole leaves, one rank at a time.
 """
 from __future__ import annotations
 
 from typing import Any, Optional
 
+from repro_torch.core.tree import tree_map
 from repro_torch.launch import mesh as meshlib
 from repro_torch.train import checkpoint as ckpt
 
@@ -41,6 +45,13 @@ def elastic_restore(directory: str, template: Any, new_mesh, *,
     (state, manifest_extra, step) as ``load_checkpoint``."""
     pspecs = meshlib.param_specs(template["params"], new_mesh)
     zspecs = meshlib.zero1_specs(pspecs, template["params"], new_mesh)
+    if isinstance(new_mesh, meshlib.RankMesh):
+        specs = {"params": pspecs,
+                 "opt": {"mu": zspecs, "nu": zspecs, "step": ()}}
+        host = tree_map(lambda _: None, template)      # whole, on the CPU
+        state, extra, step = ckpt.load_checkpoint(directory, host,
+                                                  step=step)
+        return meshlib.shard_tree(state, specs, new_mesh), extra, step
     zshard = meshlib.named_shardings(new_mesh, zspecs)
     shardings = {
         "params": meshlib.named_shardings(new_mesh, pspecs),
