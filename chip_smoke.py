@@ -245,6 +245,23 @@ the script exits non-zero without its result line:
               12's, tokens/s, peak per rank, and one step with every
               collective counted, its payload bytes and its share of the
               step. (e) B1/B2 launches 0 on every rank.
+ 17. train    the same in phase 13's groups for the encoder-decoder
+     families and VLM families. (a) SeamlessM4T-large-v2
+              whole (12 + 12 layers, 1.02 B parameters, bf16) at 8 x 512
+              (256 source frames, 256 target tokens): steps, a checkpoint
+              at step 2 from the mesh, a resume on the same mesh bit for
+              bit, each rank's bytes its shards'. (b) one f32 step of it,
+              whole in every group, at 2 x 128 against the one-device
+              float64 step, computed once before the groups spawn and
+              read by each rank for its own blocks (no rank holds a
+              float64 model): loss and global norm within TRAIN_*_RTOL,
+              every updated leaf within TRAIN_GRAD_REL_L2 of relative L2
+              over the ranks' blocks. (c) Qwen2-VL-72B reduced likewise,
+              with ``positions3`` given on a patch grid (cut on its batch
+              dim at data 2), then one bf16 step at published widths and
+              1 of 80 layers on the meshes whose reckoned peaks fit. (d)
+              the warm bf16 step of (a) beside phase 16's, with its
+              collectives. (e) B1/B2 launches 0 on every rank.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -271,8 +288,8 @@ checked calls per group, summed over its ranks,
 ``process_service_launches`` phase 14's checked window and apps per
 group, one count per rank, ``process_serving_launches`` phase 15's
 replay and KV pool per group, one count per rank, ``train_mesh_launches``
-phase 16 per group, one count per rank) and {"ok": true, "device":
-{...}}.
+phase 16 and ``train_families_launches`` phase 17 per group, one count
+per rank) and {"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1660,13 +1677,20 @@ def np_rmw(table, idx, vals, op, cond=None):
 
 def reset_peak(dev):
     import torch
-    if dev.type == "cuda":
+    if dev.type == "cuda" and torch.cuda.is_initialized():
         torch.cuda.reset_peak_memory_stats(dev)
 
 
 def peak_gib(dev) -> float:
     import torch
     return torch.cuda.max_memory_allocated(dev) / 2 ** 30 \
+        if dev.type == "cuda" else 0.0
+
+
+def card_free_gib(dev) -> float:
+    """The card's free memory, over every process on it (0 on the CPU)."""
+    import torch
+    return torch.cuda.mem_get_info(dev)[0] / 2 ** 30 \
         if dev.type == "cuda" else 0.0
 
 
@@ -3732,6 +3756,7 @@ TM_DROP_CF = 0.5                   # (c): the GSPMD MoE's capacity factor
 TM_TIMED = 3                       # (d): warm timed bf16 steps (median)
 TM_JOIN_S = 900                    # a group not done by then fails
 TM_GLOO_LAYERS = 4                 # the gloo groups' (a)/(d) depth (of 28)
+TM_RESULTS: dict = {}              # (d) per group, printed beside phase 17's
 
 
 def tm_shapes(world: int):
@@ -3817,15 +3842,17 @@ def tm_saved(directory: Path, step: int):
                 yield key, ckpt._decode(z[key], entries[key]["dtype"])
 
 
-def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
-    """(a) and (d) on one rank: Qwen3-0.6B whole in bf16 at 8 x 512 on
-    the group's mesh (``Trainer(mesh=...)``), steps 0-1, a checkpoint at
-    step 2 from the mesh, step 2; a resume from it on the same mesh whose
-    step 2 must equal bit for bit (deterministic mode); then, in the
-    default mode, TM_TIMED timed steps and one step whose collectives are
-    counted and timed; then ``elastic_restore`` of step 2 onto the other
-    shape: every leaf the checkpoint's whole leaf's slice, one finite
-    step."""
+def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
+             elastic: bool = True) -> dict:
+    """(a) and (d) on one rank: ``cfg`` (phase 16: Qwen3-0.6B, phase 17:
+    SeamlessM4T-large-v2) in bf16 at 8 x 512 on the group's mesh
+    (``Trainer(mesh=...)``), steps 0-1, a checkpoint at step 2 from the
+    mesh, step 2; a resume from it on the same mesh whose step 2 must
+    equal bit for bit (deterministic mode); then, in the default mode,
+    ``timed`` timed steps and one step whose collectives are counted and
+    timed; then, with ``elastic``, ``elastic_restore`` of step 2 onto the
+    other shape: every leaf the checkpoint's whole leaf's slice, one
+    finite step."""
     import statistics
     import torch
     import torch.distributed as dist
@@ -3841,14 +3868,15 @@ def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
     dev = mesh.device
     template = tm_template(cfg)
     model = build_model(cfg, device=dev)
-    total = 4 + TM_TIMED
+    total = 4 + timed
 
     def trainer_on(m):
         return Trainer(model=model, mesh=m, warmup=1, total_steps=total)
     pipe = SyntheticTokenPipeline(cfg, 8, 512, seed=seed, device=dev)
     step = trainer_on(mesh).jitted_step(pipe.get_batch(0))
-    batch = lambda i: meshlib.shard_tree(pipe.get_batch(i),
-                                         step.in_specs[2], mesh)
+    batch = lambda i: meshlib.batch_block(pipe.get_batch(i),
+                                          step.in_specs[2], mesh)
+    other = other if elastic else None
     out = {"shape": shape, "other": other, "device": str(dev)}
     empty_cache(dev)
     reset_peak(dev)
@@ -3889,7 +3917,7 @@ def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
     empty_cache(dev)
     reset_peak(dev)
     times = []
-    for i in range(3, 3 + TM_TIMED):
+    for i in range(3, 3 + timed):
         b = batch(i)
         dist.barrier()
         sync()
@@ -3898,7 +3926,7 @@ def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
     stats = {"s": 0.0, "calls": {}, "bytes": 0}
-    b = batch(3 + TM_TIMED)
+    b = batch(3 + timed)
     undo = tm_collectives(stats)
     try:
         dist.barrier()
@@ -3935,8 +3963,8 @@ def tm_train(rank, device, seed, tmp: Path, cfg) -> dict:
                                  f"checkpoint lacks: {sorted(held)}")
         tm_held(step2, template["params"], state["params"], state["opt"])
         _, _, m = step2(state["params"], state["opt"],
-                        meshlib.shard_tree(pipe.get_batch(2),
-                                           step2.in_specs[2], mesh2))
+                        meshlib.batch_block(pipe.get_batch(2),
+                                            step2.in_specs[2], mesh2))
         out["elastic_loss"] = float(m["loss"])
         if not abs(out["elastic_loss"]) < float("inf"):
             raise AssertionError(f"rank {rank}: the step after the elastic "
@@ -4150,6 +4178,7 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
                                  f"differ: {[x['losses'] for x in a]}")
         slowest = [max(x["ms"][i] for x in a) for i in range(TM_TIMED)]
         ms = statistics.median(slowest)
+        TM_RESULTS[name] = {"ms": ms, "depth": ranks[0]["depth"]}
         coll = a[0]["coll"]
         log(f"phase 16 {name} (a) Qwen3-0.6B {ranks[0]['depth']}, mesh "
             f"{a[0]['shape']}: "
@@ -4185,6 +4214,444 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
             f"path calls no kernel); seconds per rank (a+d, b, c) "
             f"{[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}; "
             f"{wall:.1f} s")
+    return out
+
+
+# --- phase 17 --------------------------------------------------------------
+
+TF_ARCH = "seamless-m4t-large-v2"  # whole: 12 + 12 layers, published widths
+TF_VLM = "qwen2-vl-72b"
+TF_VLM_CHECK = (4, 64, (1, 2, 2))  # (c) reduced: batch, seq, patch grid
+TF_VLM_WIDE = (2, 256, (1, 4, 4))  # (c) published widths, 1 of 80 layers
+# meshes whose reckoned (c) peaks leave the card 10 GiB: (2, 2)'s four
+# ranks would need ~80 GiB (PERF.md)
+TF_VLM_WIDE_MESHES = ((1, 1), (1, 2))
+# the phase's 180 s budget cuts the gloo groups first in (d)'s timed
+# steps, then in (a)/(d)'s depth (PERF.md): (b) stays whole
+TF_TIMED = {"nccl": TM_TIMED, "gloo": 1}   # (d): warm timed bf16 steps
+TF_GLOO_LAYERS = 1                 # the gloo groups' (a)/(d) depth: 1 + 1
+
+
+def vlm_positions3(batch: int, s_img: int, s_txt: int, grid: tuple):
+    """M-RoPE position streams (3, batch, s_img + s_txt) as Qwen2-VL
+    builds them: the patch tokens on a (temporal, height, width) ``grid``,
+    the text continuing after the grid's largest position in all three
+    streams; row b shifted by 2b (as after a prompt of 2b tokens)."""
+    import numpy as np
+    t, h, w = grid
+    cells = np.indices((t, h, w)).reshape(3, s_img)
+    text = cells.max() + 1 + np.arange(s_txt)
+    one = np.concatenate([cells, np.broadcast_to(text, (3, s_txt))], 1)
+    return (one[:, None, :] + 2 * np.arange(batch)[None, :, None]).astype(
+        np.int32)
+
+
+def tf_batch(cfg, b: int, s: int, seed: int, dev, grid=None) -> dict:
+    """The seeded batch of (b)/(c): the same on the parent and every rank;
+    the VLM's with ``positions3`` given on a patch ``grid``."""
+    import torch
+    from repro_torch.data import SyntheticTokenPipeline
+    batch = SyntheticTokenPipeline(cfg, b, s, seed=seed,
+                                   device=dev).get_batch(0)
+    if grid is not None:
+        s_img = batch["patch_embeds"].shape[1]
+        batch["positions3"] = torch.from_numpy(vlm_positions3(
+            b, s_img, batch["tokens"].shape[1], grid)).to(dev)
+    return batch
+
+
+def tf_key(path) -> str:
+    return ".".join(map(str, path))
+
+
+def tf_reference(dev, seed: int, cfg, b: int, s: int, grid=None) -> dict:
+    """The one-device step of (b)/(c), once, in this process before the
+    groups spawn, so that no rank holds a float64 model: ``cfg``'s f32
+    params from ``seed`` widened to float64, one step of
+    ``make_train_step``. AdamW's math is f32 in every dtype, so its
+    moments are f32 and the new params f32 values: each updated leaf is
+    kept on ``dev`` in f32 (exact), and the spawn hands it to the ranks
+    through CUDA IPC (``torch.multiprocessing`` pickles a CUDA tensor by
+    its memory handle), each rank reading its own blocks in place.
+    Returns the metrics, the seconds, the card's peak and ``leaves``."""
+    import dataclasses
+    import torch
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import make_train_step
+    t0 = time.perf_counter()
+    empty_cache(dev)
+    reset_peak(dev)
+    wide = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
+    to64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
+    p64 = tree_map(to64, build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed)))
+    batch = {k: to64(v) for k, v in tf_batch(cfg, b, s, seed, dev,
+                                             grid).items()}
+    p64, o, m = make_train_step(build_model(wide, device=dev))(
+        p64, adamw_init(p64, state_dtype="float32"), batch)
+    leaves = {tf_key(path): t.float() for path, t in tree_leaves_with_path(
+        {"p": p64, "o": {"mu": o["mu"], "nu": o["nu"]}})}
+    peak = peak_gib(dev)
+    del p64, o, batch
+    empty_cache(dev)
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "s": time.perf_counter() - t0, "peak_gib": peak,
+            "leaves": leaves}
+
+
+def tf_check(rank, device, seed, cfg, shape, b, s, ref: dict,
+             grid=None) -> dict:
+    """(b), (c): one f32 step of ``cfg`` on a process mesh of ``shape``,
+    each updated leaf of the rank (params and AdamW's moments, which carry
+    the clipped gradient) held against its block of the one-device step's
+    (``tf_reference``'s ``leaves``, ``ref``): the squared error and the
+    squared reference, each divided by the number of ranks that hold the
+    same block, so that the sums over the ranks are the whole leaf's.
+    Returns them with the metrics and the rank's device peak and largest
+    resident host memory."""
+    import torch
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.train.trainer import shard_train_step
+    mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
+    dev = mesh.device
+    empty_cache(dev)
+    reset_peak(dev)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    batch = tf_batch(cfg, b, s, seed, dev, grid)
+    step = shard_train_step(model, mesh, params, None, batch)
+    ps, ospecs, bs = step.in_specs
+    p = meshlib.shard_tree(params, ps, mesh)
+    o = adamw_init(meshlib.shard_tree(params, ospecs["mu"], mesh),
+                   state_dtype="float32")
+    bb = meshlib.batch_block(batch, bs, mesh)
+    del params, batch
+    host = host_rss_gib()
+    p, o, m = step(p, o, bb)
+    sync()
+    host = max(host, host_rss_gib())
+    spec_of = dict(tree_leaves_with_path({"p": ps, "o": ospecs},
+                                         is_leaf=meshlib.is_spec))
+    sums = {}
+    for path, t in tree_leaves_with_path({"p": p, "o": {
+            "mu": o["mu"], "nu": o["nu"]}}):
+        want, copies = ref[tf_key(path)], mesh.size
+        for d, ax in enumerate(spec_of[path]):
+            if ax is not None:
+                n = want.shape[d] // mesh.count(ax)
+                want = want.narrow(d, mesh.index(ax) * n, n)
+                copies //= mesh.count(ax)
+        w = want.to(dev).double()
+        sums[tf_key(path)] = (float(((t.double() - w) ** 2).sum()) / copies,
+                              float((w * w).sum()) / copies)
+        del w
+    host = max(host, host_rss_gib())
+    return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "step": int(o["step"]), "sums": sums, "peak_gib": peak_gib(dev),
+            "host_gib": host}
+
+
+def tf_wide(device, seed, shape) -> dict:
+    """(c) at published widths on one rank: one bf16 step of Qwen2-VL-72B
+    at 1 of its 80 layers on the group's mesh of ``shape``
+    (``Trainer``), ``positions3`` given; returns its loss, wall time and
+    the rank's device peak."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import Trainer
+    mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
+    dev = mesh.device
+    empty_cache(dev)
+    reset_peak(dev)
+    cfg = dataclasses.replace(get_config(TF_VLM), n_layers=1)
+    b, s, grid = TF_VLM_WIDE
+    trainer = Trainer(model=build_model(cfg, device=dev), mesh=mesh,
+                      warmup=1, total_steps=2)
+    params, opt = trainer.init_state(seed)
+    batch = tf_batch(cfg, b, s, seed, dev, grid)
+    step = trainer.jitted_step(batch)
+    bb = meshlib.batch_block(batch, step.in_specs[2], mesh)
+    sync()
+    t0 = time.perf_counter()
+    params, opt, m = step(params, opt, bb)
+    sync()
+    out = {"loss": float(m["loss"]), "ms": (time.perf_counter() - t0) * 1e3,
+           "peak_gib": peak_gib(dev), "shape": shape}
+    del params, opt, m
+    empty_cache(dev)
+    return out
+
+
+def tf_rank(rank, world, backend, device, seed, tmp, refs):
+    """One rank of phase 17 (spawned): (a) + (d), (b), (c); the kernels'
+    launch counters from 0 over the phase's work on this rank. A failure
+    is printed with the rank's traceback before it propagates."""
+    try:
+        return tf_phases(rank, world, backend, device, seed, tmp, refs)
+    except BaseException:
+        import traceback
+        print(f"phase 17 rank {rank} of {backend}-{world} failed:\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
+
+
+def tf_phases(rank, world, backend, device, seed, tmp, refs):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    gk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    seamless = get_config(TF_ARCH)
+    cut = seamless if backend != "gloo" else dataclasses.replace(
+        seamless, n_layers=2 * TF_GLOO_LAYERS, n_enc_layers=TF_GLOO_LAYERS,
+        n_dec_layers=TF_GLOO_LAYERS)
+    out = {"rank": rank,
+           "depth": f"{cut.n_enc_layers} + {cut.n_dec_layers} layers",
+           "a": tm_train(rank, device, seed, Path(tmp), cut,
+                         timed=TF_TIMED[backend], elastic=False)}
+    shape = out["a"]["shape"]
+    empty_cache(torch.device(out["a"]["device"]))
+    t_a = time.perf_counter() - t0
+    b, s = TRAIN_CHECK_MESH
+    out["b"] = tf_check(rank, device, seed, dataclasses.replace(
+        seamless, dtype="float32", param_dtype="float32"), shape, b, s,
+        refs["b"])
+    t_b = time.perf_counter() - t0 - t_a
+    b, s, grid = TF_VLM_CHECK
+    out["c"] = tf_check(rank, device, seed, get_config(TF_VLM).reduced(),
+                        shape, b, s, refs["c"], grid)
+    dev = torch.device(out["a"]["device"])
+    empty_cache(dev)
+    tf_hand_back(rank, refs, Path(tmp))
+    t_c = time.perf_counter()
+    out["wide_free_gib"] = card_free_gib(dev)
+    if shape in TF_VLM_WIDE_MESHES:
+        out["c_wide"] = tf_wide(device, seed, shape)
+    out["wide_s"] = time.perf_counter() - t_c
+    out["launches"] = {"row_table_gather": gk.launches,
+                       "row_table_rmw": sk.launches}
+    out["seconds"] = (t_a, t_b, t_c - t0 - t_a - t_b)
+    return out
+
+
+TF_HAND_BACK_S = 120               # a rank waits this long for the parent
+
+
+def tf_hand_back(rank, refs: dict, tmp: Path) -> None:
+    """The rank's side of handing the parent's reference leaves back
+    before (c)'s published-width step, which does not fit on the card
+    beside them: every rank drops them (a spawned process ends in
+    ``os._exit``, where it would never release them, and the parent
+    could not free them), rank 0 says so once all have, and every rank
+    waits for the parent to have freed them (``tf_free_on_hand_back``)."""
+    import torch.distributed as dist
+    refs.clear()
+    dist.barrier()
+    if rank == 0:
+        (tmp / "released").touch()
+    t0 = time.monotonic()
+    while not (tmp / "freed").exists():
+        if time.monotonic() - t0 > TF_HAND_BACK_S:
+            raise TimeoutError(f"rank {rank}: the parent did not free the "
+                               f"reference leaves in {TF_HAND_BACK_S} s")
+        time.sleep(0.05)
+
+
+def tf_free_on_hand_back(refs: dict, tmp: Path, dev, done) -> None:
+    """The parent's side (a thread beside the spawn): once rank 0 says
+    every rank has dropped the leaves, drop them here (``refs`` is the
+    dict the spawn was handed: clearing it frees them), collect what the
+    ranks had mapped, return it to the card and say so. Stops when
+    ``done`` is set (the spawn ended)."""
+    import torch
+    while not (tmp / "released").exists():
+        if done.wait(0.05):
+            return
+    refs.clear()
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()
+    empty_cache(dev)
+    (tmp / "freed").touch()
+
+
+def tf_judge(name, what, ref: dict, ranks: list) -> None:
+    """(b)/(c) of one group: the metrics equal on every rank and within
+    TRAIN_*_RTOL of the one-device step's, every updated leaf within
+    TRAIN_GRAD_REL_L2 (relative L2 over the ranks' summed blocks)."""
+    import math
+    if len({(r["loss"], r["grad_norm"], r["step"]) for r in ranks}) != 1:
+        raise AssertionError(f"phase 17 {name} {what}: the ranks' metrics "
+                             f"differ: {[(r['loss'], r['grad_norm']) for r in ranks]}")
+    loss_err = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(ranks[0]["grad_norm"] - ref["grad_norm"]) \
+        / abs(ref["grad_norm"])
+    worst = ("", 0.0)
+    for key in ranks[0]["sums"]:
+        d2 = sum(r["sums"][key][0] for r in ranks)
+        w2 = sum(r["sums"][key][1] for r in ranks)
+        err = math.sqrt(d2 / max(w2, 1e-300))
+        if err > worst[1] or not err == err:
+            worst = (key, err)
+    log(f"phase 17 {name} {what}: f32 mesh step against the one-device "
+        f"float64 step: loss {ranks[0]['loss']:.6f} (rel err "
+        f"{loss_err:.3e}), global norm {ranks[0]['grad_norm']:.6f} (rel "
+        f"err {norm_err:.3e}), worst updated leaf rel L2 {worst[1]:.3e} "
+        f"({worst[0]}, {len(ranks[0]['sums'])} leaves); peak per rank: "
+        f"device {[round(r['peak_gib'], 2) for r in ranks]} GiB, host "
+        f"resident {[round(r['host_gib'], 2) for r in ranks]} GiB")
+    if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
+            and worst[1] <= TRAIN_GRAD_REL_L2 and ranks[0]["step"] == 1):
+        raise AssertionError(
+            f"phase 17 {name} {what}: the mesh step is off the one-device "
+            f"step (loss {loss_err:.3e}, norm {norm_err:.3e}, leaf "
+            f"{worst[1]:.3e} at {worst[0]}; bounds {TRAIN_LOSS_RTOL}, "
+            f"{TRAIN_NORM_RTOL}, {TRAIN_GRAD_REL_L2})")
+
+
+def phase_train_families(dev, seed: int, groups=PM_GROUPS):
+    """The train step over a process mesh for the encoder-decoder and VLM
+    families, one spawned process per rank, in phase 13's groups. (a)
+    SeamlessM4T-large-v2 whole (bf16, AdamW bf16 moments, remat "full")
+    at 8 x 512 (256 source frames, 256 target tokens): steps, a
+    checkpoint at step 2 from the mesh, a resume on the same mesh bit for
+    bit, each rank's bytes its shards'; the gloo groups at TF_GLOO_LAYERS
+    + TF_GLOO_LAYERS layers. (b) one f32 step of it, whole, at
+    TRAIN_CHECK_MESH against the one-device float64 step, computed here
+    before each group spawns (``tf_reference``); (c) Qwen2-VL-72B
+    reduced likewise with ``positions3`` given (cut on its batch dim at
+    data 2); then, once the ranks have handed the references back and
+    they are freed (``tf_hand_back``), one bf16 step of it at published
+    widths and 1 of 80 layers on the meshes of TF_VLM_WIDE_MESHES; (d)
+    the warm bf16 step of (a) beside phase 16's; (e) B1/B2 launches 0 on
+    every rank. Returns each kernel's launches per group, one count per
+    rank."""
+    import dataclasses
+    import statistics
+    import tempfile
+    import threading
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    b, s = TRAIN_CHECK_MESH
+    vb, vs, grid = TF_VLM_CHECK
+    wb, ws, _ = TF_VLM_WIDE
+    log(f"reduced phase 17 gloo groups, (a) and (d): {TF_ARCH} 12 + 12 -> "
+        f"{TF_GLOO_LAYERS} + {TF_GLOO_LAYERS} layers, (d) {TF_TIMED['gloo']} "
+        f"timed step (widths kept; (b) whole); this process holds "
+        f"{torch.cuda.memory_allocated(dev) / 2 ** 30 if dev.type == 'cuda' else 0.0:.2f}"
+        f" GiB of the card, {card_free_gib(dev):.2f} GiB free")
+    for backend, world, device in groups:
+        world = torch.cuda.device_count() if world is None else world
+        name = f"{backend}-{world}"
+        ref = {"b": tf_reference(dev, seed, dataclasses.replace(
+            get_config(TF_ARCH), dtype="float32", param_dtype="float32"), b,
+            s), "c": tf_reference(dev, seed, get_config(TF_VLM).reduced(),
+                                  vb, vs, grid)}
+        refs = {k: r.pop("leaves") for k, r in ref.items()}
+        gib = sum(t.nbytes for t in refs["b"].values()) / 2 ** 30
+        log(f"phase 17 {name}: the one-device float64 steps, (b) {TF_ARCH} "
+            f"whole, {b} x {s}, {ref['b']['s']:.1f} s, card peak "
+            f"{ref['b']['peak_gib']:.2f} GiB, its updated leaves kept on the "
+            f"card in f32 ({gib:.2f} GiB, read by the ranks through CUDA "
+            f"IPC); (c) {TF_VLM} reduced, {vb} x {vs}, {ref['c']['s']:.1f} "
+            f"s; {card_free_gib(dev):.2f} GiB of the card free")
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            done = threading.Event()
+            free = threading.Thread(target=tf_free_on_hand_back,
+                                    args=(refs, Path(tmp), dev, done))
+            free.start()
+            try:
+                ranks = run_ranks(tf_rank, world,
+                                  args=(backend, device, seed, tmp, refs),
+                                  backend=backend,
+                                  init_method=f"file://{tmp}/store",
+                                  timeout=PM_COLLECTIVE_S,
+                                  join_timeout=TM_JOIN_S)
+            finally:
+                done.set()
+                free.join()
+                del refs
+        wall = time.perf_counter() - t0
+        for k in out:
+            out[k][name] = [r["launches"][k] for r in ranks]
+            if any(out[k][name]):
+                raise AssertionError(f"phase 17 {name}: the train path "
+                                     f"launched {k} {out[k][name]}")
+        a = [r["a"] for r in ranks]
+        if len({tuple(x["losses"]) for x in a}) != 1:
+            raise AssertionError(f"phase 17 {name}: the ranks' losses "
+                                 f"differ: {[x['losses'] for x in a]}")
+        slowest = [max(x["ms"][i] for x in a)
+                   for i in range(TF_TIMED[backend])]
+        ms = statistics.median(slowest)
+        coll = a[0]["coll"]
+        p16 = TM_RESULTS.get(name)
+        beside = (f"phase 16 Qwen3-0.6B ({p16['depth']}): {p16['ms']:.3f} "
+                  "ms" if p16 else "phase 16 not run")
+        log(f"phase 17 {name} (a) {TF_ARCH} {ranks[0]['depth']}, mesh "
+            f"{a[0]['shape']}: losses "
+            f"{' '.join(f'{x:.4f}' for x in a[0]['losses'])} on every rank; "
+            f"checkpoint at step 2 from the mesh "
+            f"({max(x['save_s'] for x in a):.1f} s), resumed on the same "
+            f"mesh bit for bit ({a[0]['leaves']} leaves a rank, load "
+            f"{max(x['load_s'] for x in a):.1f} s); params + moments held "
+            f"per rank {[round(x['held'] / 2 ** 30, 3) for x in a]} GiB "
+            "(their shards' bytes)")
+        log(f"phase 17 {name} (d) bf16 step, {ranks[0]['depth']}, 8 x 512: "
+            f"{ms:.3f} ms (slowest rank, median of "
+            f"{' '.join(f'{t:.3f}' for t in slowest)}), "
+            f"{8 * 512 / ms * 1e3:.1f} tokens/s; {beside}; peak per rank "
+            f"over those steps {[round(x['peak_gib'], 2) for x in a]} GiB; "
+            f"one counted step {coll['step_ms']:.3f} ms with each "
+            f"collective synchronised: {coll['calls']} per rank, "
+            f"{coll['bytes'] / 2 ** 20:.1f} MiB handed to them, "
+            f"{coll['s'] * 1e3:.3f} ms in them "
+            f"({100 * coll['s'] * 1e3 / coll['step_ms']:.1f}% of that step)"
+            f"; devices {sorted({x['device'] for x in a})}")
+        tf_judge(name, f"(b) {TF_ARCH} whole, {b} x {s} on {a[0]['shape']}",
+                 ref["b"], [r["b"] for r in ranks])
+        tf_judge(name, f"(c) {TF_VLM} reduced, positions3 on a {grid} "
+                 f"grid, {vb} x {vs} on {a[0]['shape']}", ref["c"],
+                 [r["c"] for r in ranks])
+        if "c_wide" in ranks[0]:
+            wide = [r["c_wide"] for r in ranks]
+            if len({x["loss"] for x in wide}) != 1 or \
+                    not abs(wide[0]["loss"]) < float("inf"):
+                raise AssertionError(f"phase 17 {name} (c) published "
+                                     f"widths: losses "
+                                     f"{[x['loss'] for x in wide]}")
+            log(f"phase 17 {name} (c) {TF_VLM} published widths, 1 of 80 "
+                f"layers, bf16, {wb} x {ws} on {a[0]['shape']}, after the "
+                f"leaves were handed back: loss {wide[0]['loss']:.4f} on "
+                f"every rank, first step "
+                f"{max(x['ms'] for x in wide):.1f} ms (slowest rank), peak "
+                f"per rank {[round(x['peak_gib'], 2) for x in wide]} GiB, "
+                f"{ranks[0]['wide_free_gib']:.2f} GiB of the card free "
+                "before it")
+        else:
+            log(f"phase 17 {name} (c) {TF_VLM} published widths: not run on "
+                f"{a[0]['shape']} (its reckoned peaks leave the card under "
+                "10 GiB)")
+        log(f"phase 17 {name}: B1/B2 launches per rank "
+            f"{[tuple(r['launches'].values()) for r in ranks]} (the train "
+            f"path calls no kernel); seconds per rank (a+d, b, c reduced, "
+            f"c published) "
+            f"{[tuple(round(t, 1) for t in r['seconds']) + (round(r['wide_s'], 1),) for r in ranks]}"
+            f"; {wall:.1f} s")
     return out
 
 
@@ -4228,6 +4695,7 @@ def main(argv=None) -> int:
     service_launches = phase_process_service(dev, args.seed)
     serving_launches = phase_process_serving(dev, args.seed)
     train_mesh_launches = phase_train_mesh(dev, args.seed)
+    train_families_launches = phase_train_families(dev, args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -4239,6 +4707,8 @@ def main(argv=None) -> int:
         row["process_service_launches"] = service_launches[row["name"]]
         row["process_serving_launches"] = serving_launches[row["name"]]
         row["train_mesh_launches"] = train_mesh_launches[row["name"]]
+        row["train_families_launches"] = \
+            train_families_launches[row["name"]]
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

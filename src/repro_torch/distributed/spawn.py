@@ -1,8 +1,16 @@
 """Run a function on every rank of a fresh process group, one process per
-rank (``torch.multiprocessing``'s spawn context): the launcher behind the
-process-mesh tests and ``chip_smoke.py``'s phase 13, and the
-``torch.multiprocessing`` route to a ``ProcessMesh`` (``torchrun
---nproc-per-node=N`` is the other).
+rank: the launcher behind the process-mesh tests and ``chip_smoke.py``'s
+phases 13–17, and the ``torch.multiprocessing`` route to a
+``ProcessMesh`` (``torchrun --nproc-per-node=N`` is the other).
+
+The ranks are forked from ``torch.multiprocessing``'s forkserver, which
+has imported torch once (``PRELOAD``): a rank starts in about a second
+where a spawned interpreter spends seconds importing torch again (on an
+H100 machine, ~11.5 s to start four spawned ranks, ~1.6 s from a warm
+forkserver: ``src/repro_torch/bench/spawn_cost.py``). The server never
+initialises CUDA, so its children may. As with spawn, ``fn`` and its
+arguments are pickled (module-level functions), and the ranks inherit
+the environment the parent had when the server started.
 
     def work(rank, world, scale):          # module level: spawn pickles it
         mesh = process_mesh(device="cpu")
@@ -20,6 +28,9 @@ from __future__ import annotations
 import datetime
 import os
 import time
+
+
+PRELOAD = ("torch", "torch.distributed")   # imported once, by the server
 
 
 class RankFailure(RuntimeError):
@@ -54,11 +65,13 @@ def run_ranks(fn, world: int, *, args: tuple = (), backend: str = "gloo",
     ``RankFailure`` if a rank raises, exits without a result or has not
     finished ``join_timeout`` seconds after the start."""
     import torch.multiprocessing as mp
-    results = mp.get_context("spawn").SimpleQueue()
+    mp_ctx = mp.get_context("forkserver")
+    mp_ctx.set_forkserver_preload(list(PRELOAD))
+    results = mp_ctx.SimpleQueue()
     ctx = mp.start_processes(
         _child, args=(world, fn, args, backend, init_method, timeout,
                       results),
-        nprocs=world, join=False, daemon=True, start_method="spawn")
+        nprocs=world, join=False, daemon=True, start_method="forkserver")
     got, deadline = {}, time.monotonic() + join_timeout
 
     def drain():                    # a rank blocks on a full pipe

@@ -389,6 +389,26 @@ def batch_specs(batch_tree, mesh):
     return tree_map(spec, batch_tree)
 
 
+# batch leaves whose batch dimension is not dim 0: the VLM's M-RoPE
+# position streams, (3, B, S)
+BATCH_DIM = {"positions3": 1}
+
+
+def block_spec(key: str, ndim: int, specs: dict) -> Spec:
+    """The spec by which a rank of a process mesh cuts batch leaf ``key``
+    out of a batch under ``specs`` (``batch_specs``, the reference's,
+    which cut dim 0 of every leaf). A leaf whose batch is dim d > 0
+    (``BATCH_DIM``) is cut on d by the data-parallel axes that cut
+    ``tokens``, so that it holds the rows of the rank's own tokens: the
+    reference's spec replicates it where the DP size does not divide its
+    dim 0 (GSPMD then feeds each device the rows it needs)."""
+    if key not in BATCH_DIM:
+        return specs[key]
+    spec = [None] * ndim
+    spec[BATCH_DIM[key]] = specs["tokens"][0]
+    return tuple(spec)
+
+
 def cache_specs(cache_tree, mesh, batch: int, *,
                 seq_shard: bool = False, seq_len: int = 0):
     """KV-cache sharding: the batch dim (located by size) over DP axes;
@@ -454,6 +474,16 @@ def shard_tree(tree, specs, mesh: RankMesh):
     composite index), on the mesh's device."""
     return tree_map(lambda s, t: shard_of(torch.as_tensor(t), s, mesh),
                     specs, tree, is_leaf=is_spec)
+
+
+def batch_block(batch: dict, specs: dict, mesh: RankMesh) -> dict:
+    """This rank's block of a batch of whole leaves under ``batch_specs``
+    (``block_spec``), on the mesh's device."""
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        out[k] = shard_of(t, block_spec(k, t.ndim, specs), mesh)
+    return out
 
 
 def whole_of(t: torch.Tensor, spec, mesh: RankMesh) -> torch.Tensor:

@@ -66,7 +66,7 @@ def encode(params, src_embeds, cfg: ModelConfig) -> torch.Tensor:
                             positions=positions, theta=cfg.rope_theta,
                             causal=False)
         h = L.rms_norm(x, lp["ln2"])
-        return x + L.mlp(lp["mlp"], h)
+        return x + L.mlp(lp["mlp"], h, d_ff=cfg.d_ff)
 
     body = wrap_scan_body(body, cfg)
     for i in range(cfg.n_enc_layers):
@@ -88,17 +88,19 @@ def _dec_layer(lp, x, *, cfg, positions, enc_kv, cache=None, cache_len=None):
                         positions=positions, theta=cfg.rope_theta,
                         kv=enc_kv)
     h = L.rms_norm(x, lp["ln2"])
-    return x + L.mlp(lp["mlp"], h)
+    return x + L.mlp(lp["mlp"], h, d_ff=cfg.d_ff)
 
 
 def _cross_kv(lp, enc_out, cfg: ModelConfig):
     return L.cross_kv(lp["xattn"], enc_out, n_kv=cfg.n_kv_heads,
-                      head_dim=cfg.head_dim)
+                      head_dim=cfg.head_dim, n_heads=cfg.n_heads)
 
 
 def encdec_forward(params, batch: dict, cfg: ModelConfig):
     """Teacher-forced training forward.
-    batch: {"src_embeds": (B,S_src,D), "tokens": (B,S_tgt)}."""
+    batch: {"src_embeds": (B,S_src,D), "tokens": (B,S_tgt)}; over a
+    process mesh, the rank's block of both and its shards of the params
+    (``models.parallel``)."""
     enc_out = encode(params, batch["src_embeds"], cfg)
     tokens, x = embed_tokens(params, batch["tokens"], cfg)
     b, s = tokens.shape
@@ -112,7 +114,7 @@ def encdec_forward(params, batch: dict, cfg: ModelConfig):
     for i in range(cfg.n_dec_layers):
         x = body(x, layer_params(params["dec"], i))
     x = L.rms_norm(x, params["final_norm"])
-    return (emb.logits_out(params["embed"], x),
+    return (emb.logits_out(params["embed"], x, vocab=cfg.vocab),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

@@ -11,6 +11,7 @@ with ``-inf`` and fuse the softmax, and so round differently.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -158,14 +159,14 @@ def attention(p: dict, x: torch.Tensor, *, n_heads: int, n_kv: int,
     """
     mesh = P.rank_mesh()
     if P.model_split(mesh) > 1:
-        if kv is not None or cache is not None:
+        if cache is not None:
             raise NotImplementedError(
                 "attention over a process mesh's model axis runs the "
-                "training forward only (no cache, no cross-attention)")
+                "training forward only (no cache)")
         return _attention_tp(
             p, x, mesh, n_heads=n_heads, n_kv=n_kv, head_dim=head_dim,
             positions=positions, theta=theta, window=window, causal=causal,
-            mrope_sections=mrope_sections, positions3=positions3,
+            mrope_sections=mrope_sections, positions3=positions3, kv=kv,
             packed_gqa=packed_gqa)
     b, s, d = x.shape
     q = (x @ p["wq"]).reshape(b, s, n_heads, head_dim)
@@ -269,26 +270,35 @@ def _columns(xc: torch.Tensor, w: torch.Tensor, full: int, lo: int,
     return P.gather_last(xc @ w, mesh)[..., lo:hi]
 
 
-def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
-                  n_kv: int, head_dim: int, positions: torch.Tensor,
-                  theta: float, window: Optional[int], causal: bool,
-                  mrope_sections: Optional[tuple],
-                  positions3: Optional[torch.Tensor], packed_gqa: bool):
-    """Training attention on a process mesh's ``model`` line.
+@dataclasses.dataclass(frozen=True)
+class _Share:
+    """A rank's share of an attention layer over a process mesh's
+    ``model`` line: the kv groups ``[g0, g1)`` it computes, its output
+    columns ``[lo, hi)`` (rows of ``wo``), and whether every rank's
+    groups are exactly its own columns of ``wq`` (``q_up``) and of
+    ``wk``/``wv`` (``kv_up``)."""
+    g0: int
+    g1: int
+    lo: int
+    hi: int
+    q_up: bool
+    kv_up: bool
 
-    The specs cut columns, not heads, so the rank computes whole heads:
+
+def _share(p: dict, mesh, n_heads: int, n_kv: int,
+           head_dim: int) -> _Share:
+    """The specs cut columns, not heads, so a rank computes whole heads:
     those its output columns touch (its rows of ``wo``; where ``wo`` is
     whole, a share of whole kv groups, none for a rank past the last
-    group), widened to whole kv groups (query
-    head h reads kv head h // n_rep). Where ``model`` divides the query
-    and kv heads the rank's columns of ``wq``/``wk``/``wv`` are exactly
-    those heads (Megatron's split: one ``copy`` in, one ``reduce`` out);
-    elsewhere the rank all-gathers the columns its heads need. Every rank
-    decides alike: the collectives must match."""
-    b, s, _ = x.shape
-    ms, c = P.model_split(mesh), mesh.index("model")
+    group), widened to whole kv groups (query head h reads kv head
+    h // n_rep). Every rank decides alike: the collectives must match.
+    Without a ``model`` cut the share is every group."""
+    ms = P.model_split(mesh)
     n_rep = n_heads // n_kv
-    nq, nkv = n_heads * head_dim, n_kv * head_dim
+    nq = n_heads * head_dim
+    if ms == 1:
+        return _Share(0, n_kv, 0, nq, True, True)
+    c = mesh.index("model")
 
     def out_cols(r):
         if P.sharded(p["wo"].shape[-2], nq):
@@ -302,51 +312,85 @@ def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
         h0, h1 = lo // head_dim, -(-hi // head_dim)
         return h0 // n_rep, -(-h1 // n_rep)
 
-    def lines_up(width, full):   # every rank's groups are its own columns
+    def lines_up(width):         # every rank's groups are its own columns
+        full = n_kv * width
         return all(tuple(x * width for x in groups(r)) ==
                    (r * full // ms, (r + 1) * full // ms)
                    for r in range(ms))
 
-    g0, g1 = groups(c)
+    return _Share(*groups(c), *out_cols(c), lines_up(n_rep * head_dim),
+                  lines_up(head_dim))
+
+
+def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
+                  n_kv: int, head_dim: int, positions: torch.Tensor,
+                  theta: float, window: Optional[int], causal: bool,
+                  mrope_sections: Optional[tuple],
+                  positions3: Optional[torch.Tensor], kv: Optional[tuple],
+                  packed_gqa: bool):
+    """Training attention on a process mesh's ``model`` line, over the
+    rank's share of whole kv groups (``_share``). Where ``model`` divides
+    the query and kv heads the rank's columns of ``wq``/``wk``/``wv`` are
+    exactly those heads (Megatron's split: one ``copy`` in, one
+    ``reduce`` out); elsewhere the rank all-gathers the columns its heads
+    need. Cross-attention (``kv``) takes K/V of the same groups from
+    ``cross_kv``, over a source of its own length: no rotation, no
+    mask."""
+    b, s, _ = x.shape
+    sh = _share(p, mesh, n_heads, n_kv, head_dim)
+    n_rep = n_heads // n_kv
+    nq, nkv = n_heads * head_dim, n_kv * head_dim
     xc = P.copy(x, mesh)
-    q = _columns(xc, p["wq"], nq, g0 * n_rep * head_dim,
-                 g1 * n_rep * head_dim, mesh,
-                 lines_up(n_rep * head_dim, nq))
-    kv_up = lines_up(head_dim, nkv)
-    k = _columns(xc, p["wk"], nkv, g0 * head_dim, g1 * head_dim, mesh,
-                 kv_up)
-    v = _columns(xc, p["wv"], nkv, g0 * head_dim, g1 * head_dim, mesh,
-                 kv_up)
-    q = q.reshape(b, s, (g1 - g0) * n_rep, head_dim)
-    k = k.reshape(b, s, g1 - g0, head_dim)
-    v = v.reshape(b, s, g1 - g0, head_dim)
+    q = _columns(xc, p["wq"], nq, sh.g0 * n_rep * head_dim,
+                 sh.g1 * n_rep * head_dim, mesh, sh.q_up)
+    q = q.reshape(b, s, (sh.g1 - sh.g0) * n_rep, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, P.copy(p["q_norm"], mesh))
-    if "k_norm" in p:
-        k = rms_norm(k, P.copy(p["k_norm"], mesh))
-    if mrope_sections is not None:
-        q = apply_mrope(q, positions3, theta, mrope_sections)
-        k = apply_mrope(k, positions3, theta, mrope_sections)
+    if kv is None:
+        k = _columns(xc, p["wk"], nkv, sh.g0 * head_dim, sh.g1 * head_dim,
+                     mesh, sh.kv_up).reshape(b, s, sh.g1 - sh.g0, head_dim)
+        v = _columns(xc, p["wv"], nkv, sh.g0 * head_dim, sh.g1 * head_dim,
+                     mesh, sh.kv_up).reshape(b, s, sh.g1 - sh.g0, head_dim)
+        if "k_norm" in p:
+            k = rms_norm(k, P.copy(p["k_norm"], mesh))
+        if mrope_sections is not None:
+            q = apply_mrope(q, positions3, theta, mrope_sections)
+            k = apply_mrope(k, positions3, theta, mrope_sections)
+        else:
+            q = apply_rope(q, positions, theta)
+            k = apply_rope(k, positions, theta)
     else:
-        q = apply_rope(q, positions, theta)
-        k = apply_rope(k, positions, theta)
-    m = _causal_mask(s, s, window=window, device=x.device) if causal \
-        else None
+        k, v = kv
+    m = _causal_mask(s, s, window=window, device=x.device) \
+        if causal and kv is None else None
     out = _attend(q, k, v, m, packed_gqa=packed_gqa, dtype=x.dtype)
-    lo, hi = out_cols(c)
-    base = g0 * n_rep * head_dim
-    out = out[..., lo - base:hi - base]
+    base = sh.g0 * n_rep * head_dim
+    out = out[..., sh.lo - base:sh.hi - base]
     wo = p["wo"] if P.sharded(p["wo"].shape[-2], nq) \
-        else P.copy(p["wo"], mesh)[..., lo:hi, :]
+        else P.copy(p["wo"], mesh)[..., sh.lo:sh.hi, :]
     return P.reduce(out @ wo, mesh)
 
 
-def cross_kv(p: dict, enc_out: torch.Tensor, *, n_kv: int, head_dim: int):
+def cross_kv(p: dict, enc_out: torch.Tensor, *, n_kv: int, head_dim: int,
+             n_heads: Optional[int] = None):
     """Precompute cross-attention K/V from encoder states (reused every
-    decode step — the paper's stream-once-reuse-many pattern)."""
+    decode step — the paper's stream-once-reuse-many pattern). On a
+    process mesh's ``model`` line, the K/V of the rank's kv groups
+    (``_share``, which needs ``n_heads``) for its cross-attention: the
+    encoder states, whole on every ``model`` rank, enter through
+    ``copy``."""
+    mesh = P.rank_mesh()
+    if n_heads is None:
+        if P.model_split(mesh) > 1:
+            raise ValueError("cross_kv over a process mesh's model axis "
+                             "needs n_heads (its kv groups' query heads)")
+        n_heads = n_kv
     b, s, _ = enc_out.shape
-    k = (enc_out @ p["wk"]).reshape(b, s, n_kv, head_dim)
-    v = (enc_out @ p["wv"]).reshape(b, s, n_kv, head_dim)
+    sh = _share(p, mesh, n_heads, n_kv, head_dim)
+    ec = P.copy(enc_out, mesh)
+    k, v = (_columns(ec, p[w], n_kv * head_dim, sh.g0 * head_dim,
+                     sh.g1 * head_dim, mesh, sh.kv_up)
+            .reshape(b, s, sh.g1 - sh.g0, head_dim) for w in ("wk", "wv"))
     return k, v
 
 

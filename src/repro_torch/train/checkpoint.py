@@ -23,6 +23,10 @@ package loads in the other. Loaded leaves are tensors on the template
 leaf's device (the CPU where the template holds no tensor), or where
 ``shardings`` places them.
 
+Shard files are written and read side by side (``IO_THREADS`` threads:
+the copies, checksums and hashes release the GIL); the files are those
+of one writer.
+
 From a process mesh (``launch.mesh.RankMesh``), ``save_checkpoint`` with
 ``mesh=`` and ``specs=`` gathers whole leaves, one at a time, and rank 0
 writes exactly the one-device files and manifest while the other ranks
@@ -35,6 +39,7 @@ import hashlib
 import json
 import os
 import shutil
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Optional
 
 import numpy as np
@@ -42,6 +47,8 @@ import torch
 
 from repro_torch.core.tree import (path_key, tree_leaves_with_path,
                                    tree_map_with_path)
+
+IO_THREADS = 8                 # shard files written or read at once
 
 # npz can't store bf16/fp8: round-trip via a same-width unsigned view, with
 # the true dtype recorded in the manifest.
@@ -62,15 +69,32 @@ def _encode(t: torch.Tensor):
 
 
 def _decode(arr: np.ndarray, true_dtype: str) -> torch.Tensor:
+    """A stored array as a tensor of its true dtype; the array's own
+    memory where it is writable (an array read from an npz is)."""
+    if not arr.flags.writeable:
+        arr = arr.copy()
     if true_dtype in _EXOTIC and arr.dtype == _EXOTIC[true_dtype][0]:
-        bits = torch.from_numpy(arr.view(_EXOTIC[true_dtype][0]).copy())
+        bits = torch.from_numpy(arr)
         return bits.view(_EXOTIC[true_dtype][1]).view(
             getattr(torch, true_dtype))
-    return torch.from_numpy(np.array(arr, copy=True))
+    return torch.from_numpy(arr)
+
+
+def _io_map(fn, items) -> list:
+    """``fn`` over the shard ids ``items`` in up to IO_THREADS threads, in
+    order: a shard file's bytes are copied, checksummed and hashed with
+    the GIL released, so shards are written and read side by side."""
+    items = list(items)
+    if len(items) <= 1:
+        return [fn(i) for i in items]
+    with ThreadPoolExecutor(min(IO_THREADS, len(items))) as pool:
+        return list(pool.map(fn, items))
 
 
 def _hash(arr: np.ndarray) -> str:
-    return hashlib.sha256(arr.tobytes()).hexdigest()[:16]
+    """The 16-hex SHA-256 prefix of the array's bytes in C order, hashed
+    in place."""
+    return hashlib.sha256(np.ascontiguousarray(arr)).hexdigest()[:16]
 
 
 def save_checkpoint(directory: str, step: int, state: Any, *,
@@ -85,30 +109,38 @@ def save_checkpoint(directory: str, step: int, state: Any, *,
                                 keep_last=keep_last,
                                 shard_bytes=shard_bytes, mesh=mesh,
                                 specs=specs)
-    flat = {path_key(p): leaf for p, leaf in tree_leaves_with_path(state)}
+    flat = {path_key(p): torch.as_tensor(leaf)
+            for p, leaf in tree_leaves_with_path(state)}
     tmp = os.path.join(directory, f"step_{step}.tmp")
     final = os.path.join(directory, f"step_{step}")
     os.makedirs(tmp, exist_ok=True)
 
-    shards, cur, cur_bytes, sid = [], {}, 0, 0
-    manifest_entries = {}
+    # leaves in key order, a shard closed once it holds shard_bytes
+    groups, cur, cur_bytes = [], [], 0
     for key in sorted(flat):
-        arr, true_dtype = _encode(torch.as_tensor(flat[key]))
-        cur[key] = arr
-        cur_bytes += arr.nbytes
-        manifest_entries[key] = {
-            "shard": sid, "dtype": true_dtype, "shape": list(arr.shape),
-            "hash": _hash(arr)}
+        cur.append(key)
+        cur_bytes += flat[key].numel() * flat[key].element_size()
         if cur_bytes >= shard_bytes:
-            np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **cur)
-            shards.append(sid)
-            cur, cur_bytes, sid = {}, 0, sid + 1
+            groups.append(cur)
+            cur, cur_bytes = [], 0
     if cur:
-        np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **cur)
-        shards.append(sid)
+        groups.append(cur)
 
+    def write(sid):
+        arrays, entries = {}, {}
+        for key in groups[sid]:
+            arr, true_dtype = _encode(flat[key])
+            arrays[key] = arr
+            entries[key] = {"shard": sid, "dtype": true_dtype,
+                            "shape": list(arr.shape), "hash": _hash(arr)}
+        np.savez(os.path.join(tmp, f"shard_{sid}.npz"), **arrays)
+        return entries
+
+    manifest_entries = {}
+    for entries in _io_map(write, range(len(groups))):
+        manifest_entries.update(entries)
     manifest = {"step": step, "entries": manifest_entries,
-                "shards": shards, "extra": extra or {}}
+                "shards": list(range(len(groups))), "extra": extra or {}}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
@@ -169,8 +201,8 @@ def load_checkpoint(directory: str, template: Any, *,
     path = os.path.join(directory, f"step_{step}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
-    flat = {}
-    for sid in manifest["shards"]:
+    def read(sid):
+        out = {}
         with np.load(os.path.join(path, f"shard_{sid}.npz")) as z:
             for k in z.files:
                 arr = z[k]
@@ -179,7 +211,12 @@ def load_checkpoint(directory: str, template: Any, *,
                 if want != got:
                     raise IOError(
                         f"checkpoint corruption: {k} hash {got} != {want}")
-                flat[k] = _decode(arr, manifest["entries"][k]["dtype"])
+                out[k] = _decode(arr, manifest["entries"][k]["dtype"])
+        return out
+
+    flat = {}
+    for part in _io_map(read, manifest["shards"]):
+        flat.update(part)
 
     def place(p, like, *sharding):
         t = flat[path_key(p)]

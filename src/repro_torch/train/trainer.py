@@ -90,7 +90,7 @@ class ShardedStep:
         return self.step(to_dev(params), to_dev(opt_state), to_dev(batch))
 
 
-MESH_FAMILIES = ("dense", "moe")     # trained over a process mesh
+MESH_FAMILIES = ("dense", "moe", "vlm", "encdec")  # over a process mesh
 
 
 def check_mesh_family(cfg) -> None:
@@ -155,7 +155,9 @@ class ProcessStep:
     and returns this rank's shards: params under ``in_specs[0]``, the
     optimizer state under ``in_specs[1]`` (moments ZeRO-1 over ``data``),
     the batch under ``in_specs[2]`` (the rank's block, or the whole batch
-    where the specs replicate it); ``metrics`` are equal on every rank.
+    where the specs replicate it; a leaf whose batch is not dim 0, the
+    VLM's ``positions3``, the rows of the rank's block:
+    ``launch.mesh.batch_block``); ``metrics`` are equal on every rank.
     A batch every rank holds whole is computed whole on every
     data-parallel rank and its gradients are not summed."""
     model: Any
@@ -169,8 +171,9 @@ class ProcessStep:
 
     @property
     def batch_split(self) -> bool:
-        return any(ax is not None for spec in tree_leaves(
-            self.in_specs[2], is_leaf=meshlib.is_spec) for ax in spec)
+        bspecs = self.in_specs[2]
+        return any(ax is not None for k, spec in bspecs.items()
+                   for ax in meshlib.block_spec(k, len(spec), bspecs))
 
     def _check(self, params, batch):
         got = tree_map(lambda t: tuple(t.shape), (params, batch))
@@ -212,8 +215,9 @@ class ProcessStep:
 def shard_train_step(model, mesh, params_shape, opt_shape, batch_shape,
                      **kw):
     """The train step with explicit specs for ``mesh``: a ``ShardedStep``
-    on a logical mesh, a ``ProcessStep`` on a process mesh (dense and MoE
-    families; the others raise ``NotImplementedError``, ROADMAP A14f).
+    on a logical mesh, a ``ProcessStep`` on a process mesh (the dense,
+    MoE, VLM and encoder-decoder families; the hybrid and SSM families
+    raise ``NotImplementedError``, ROADMAP A14f).
 
     params_shape/opt_shape/batch_shape: trees of tensors or
     ``data.ShapeDtypeStruct`` of the WHOLE leaves (``opt_shape`` is read
@@ -226,15 +230,17 @@ def shard_train_step(model, mesh, params_shape, opt_shape, batch_shape,
     bspecs = meshlib.batch_specs(batch_shape, mesh)
     if isinstance(mesh, meshlib.RankMesh):
         check_mesh_family(model.cfg)
-        local = lambda tree, specs: tree_map(
-            lambda s, t: meshlib.shard_shape(t.shape, s, mesh), specs, tree,
-            is_leaf=meshlib.is_spec)
+        local_params = tree_map(
+            lambda s, t: meshlib.shard_shape(t.shape, s, mesh), pspecs,
+            params_shape, is_leaf=meshlib.is_spec)
+        local_batch = {k: meshlib.shard_shape(
+            t.shape, meshlib.block_spec(k, len(t.shape), bspecs), mesh)
+            for k, t in batch_shape.items()}
         schedule = kw.pop("schedule", None) or \
             make_schedule(model.cfg.schedule)
         return ProcessStep(model, mesh, (pspecs, ospecs, bspecs),
-                           (pspecs, ospecs),
-                           (local(params_shape, pspecs),
-                            local(batch_shape, bspecs)), schedule, **kw)
+                           (pspecs, ospecs), (local_params, local_batch),
+                           schedule, **kw)
     return ShardedStep(make_train_step(model, **kw), mesh,
                        (pspecs, ospecs, bspecs), (pspecs, ospecs))
 

@@ -1,25 +1,13 @@
 """The port's train step over a process mesh (``launch.mesh.RankMesh``:
 one rank per mesh position, each holding only its shards) against the
 JAX package's GSPMD step (``train.trainer.shard_train_step``) on the same
-mesh shape, on the CPU.
-
-The reference runs in subprocesses on 8 forced host devices, on meshes
-built with ``Auto`` axis types: ``launch.mesh.make_host_mesh`` gives
-``Explicit`` axes on the installed JAX, where the sharded step's embedding
-gather fails (ROADMAP, reference caveats). Its inputs are placed under
-its own specs first and every case runs under ``jax.sharding.set_mesh``,
-so the EP MoE takes its ``shard_map`` path. The port runs over gloo
-worlds 2 and 4 (8 with ``--runslow``), each spawned once for the module
-(``tests/train_mesh_ranks.py``). Every case draws its f32 params from the
-port's seeded init, runs its steps with f32 moments, and is held:
-
-  * loss and grad_norm at every step within rtol 1e-5 of the
-    reference's, and equal bit for bit on every rank;
-  * every updated leaf, gathered (params and both moments: the moments
-    carry the clipped gradient), within the relative L2 error of
-    tests/test_torch_train.py (GRAD_REL_L2);
-  * each rank holding only its ``param_specs`` / ``zero1_specs`` shards
-    and its ``batch_specs`` block: the shapes and the storage bytes.
+mesh shape, on the CPU: the reference in a subprocess per world, gloo
+worlds 2 and 4 (8 with ``--runslow``) each spawned once for the module,
+and the checks of ``tests/train_mesh_reference.py`` (loss and grad_norm
+within rtol 1e-5 and equal on every rank, every updated leaf and both
+moments within 2e-5 relative L2, each rank holding only its shards).
+The reference's EP MoE takes its ``shard_map`` path under
+``jax.sharding.set_mesh``.
 
 The cases cover what looks right on a (1, 1) mesh and is wrong elsewhere:
 heads that do not line up with the column cut (SmolLM's published 9
@@ -37,24 +25,12 @@ MoE (A14d) on (1, 4) and (2, 2), there also on a batch of 1 (each rank
 runs every data block for its expert) — (2, 4) and (4, 2) with
 ``--runslow``.
 """
-import json
-import os
-import pickle
-import subprocess
-import sys
-import time
-from pathlib import Path
-
 import numpy as np
 import pytest
 
 import train_mesh_ranks as tr
-from repro_torch.distributed.spawn import run_ranks
-from repro_torch.launch import mesh as meshlib
+import train_mesh_reference as ref
 
-ROOT = Path(__file__).resolve().parents[1]
-GRAD_REL_L2, METRIC_RTOL = 2e-5, 1e-5       # as tests/test_torch_train.py
-SPAWN_LIMIT = 180.0
 DN = ("data", "model")
 CASES = {
     "smollm_9_heads_2x2": dict(arch="smollm-135m", mesh=(2, 2), axes=DN,
@@ -106,7 +82,7 @@ SLOW = {"dbrx_ep_2x4", "dbrx_ep_4x2"}
 
 
 def world_of(name) -> int:
-    return int(np.prod(CASES[name]["mesh"]))
+    return ref.world_of(CASES[name])
 
 
 def case_param(name):
@@ -117,127 +93,18 @@ def case_param(name):
 NAMES = [case_param(n) for n in CASES]
 
 
-# ---------------------------------------------------------------------------
-# the reference's sharded step (run as a script in a subprocess)
-# ---------------------------------------------------------------------------
-
-def _reference(inputs_path, out_path, names):
-    import dataclasses
-    import jax
-    from jax.sharding import AxisType, NamedSharding, PartitionSpec as P
-    from repro import configs
-    from repro.launch import mesh as rmesh
-    from repro.models import build_model
-    from repro.optim import adamw_init
-    from repro.train.trainer import shard_train_step
-    z = np.load(inputs_path)
-    out = {}
-    for name in names:
-        case = CASES[name]
-        cfg = configs.get_config(case["arch"]).reduced(**case.get("ov", {}))
-        if case.get("ep"):
-            cfg = dataclasses.replace(cfg, moe_a2a=True)
-        model = build_model(cfg)
-        pre = f"{name}/"
-        flat = {k[len(pre):]: z[k] for k in z.files if k.startswith(pre)}
-        params = tr._unflatten({k[2:]: v for k, v in flat.items()
-                                if k.startswith("p/")})
-        batch = {k[2:]: v for k, v in flat.items() if k.startswith("b/")}
-        opt = adamw_init(params, state_dtype="float32")
-        n = world_of(name)
-        mesh = jax.make_mesh(case["mesh"], case["axes"],
-                             axis_types=(AxisType.Auto,) * len(case["axes"]),
-                             devices=jax.devices()[:n])
-        pspecs = rmesh.param_specs(params, mesh)
-        zspecs = rmesh.zero1_specs(pspecs, params, mesh)
-
-        def put(tree, specs):
-            return jax.tree_util.tree_map(
-                lambda x, s: jax.device_put(x, NamedSharding(mesh, s)),
-                tree, specs, is_leaf=lambda x: isinstance(x, P))
-        step = shard_train_step(model, mesh, params, opt, batch)
-        p = put(params, pspecs)
-        o = {"mu": put(opt["mu"], zspecs), "nu": put(opt["nu"], zspecs),
-             "step": opt["step"]}
-        b = put(batch, rmesh.batch_specs(batch, mesh))
-        with jax.sharding.set_mesh(mesh):
-            for i in range(case["steps"]):
-                p, o, m = step(p, o, b)
-                for k in ("loss", "grad_norm", "lr"):
-                    out[f"{name}/m/{i}/{k}"] = np.asarray(m[k])
-        whole = jax.tree_util.tree_map(np.asarray, {"p": p, "o": o})
-        for path, leaf in jax.tree_util.tree_leaves_with_path(whole):
-            key = "/".join(str(getattr(k, "key", k)) for k in path)
-            out[f"{name}/w/{key}"] = leaf
-    np.savez(out_path, **out)
-
-
-# ---------------------------------------------------------------------------
-# the runs: the reference in subprocesses, each world spawned once
-# ---------------------------------------------------------------------------
-
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("train_mesh")
+    """The reference in subprocesses and each gloo world spawned once
+    (``train_mesh_reference.run_cases``)."""
     slow = request.config.getoption("--runslow")
-    names = [n for n in CASES if slow or n not in SLOW]
-    arrays = {}
-    for name in names:
-        params, batch = tr.case_inputs(name, CASES[name])
-        arrays.update({f"{name}/p/{k}": v
-                       for k, v in tr._flat(params).items()})
-        arrays.update({f"{name}/b/{k}": v for k, v in batch.items()})
-    inputs = tmp / "inputs.npz"
-    np.savez(inputs, **arrays)
-    env = dict(os.environ, JAX_PLATFORMS="cpu",
-               XLA_FLAGS="--xla_force_host_platform_device_count=8",
-               PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
-                                           str(ROOT / "tests")]))
-    worlds = sorted({world_of(n) for n in names})
-    # one reference process per world, running while the worlds spawn
-    refs = {w: subprocess.Popen(
-        [sys.executable, __file__, "--ref", str(inputs),
-         str(tmp / f"ref{w}.npz"),
-         json.dumps([n for n in names if world_of(n) == w])],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for w in worlds}
-    got, seconds = {}, {}
-    try:
-        for w in worlds:
-            out = tmp / f"world{w}"
-            out.mkdir()
-            t0 = time.perf_counter()
-            run_ranks(tr.train_main, w,
-                      args=(str(inputs), {n: CASES[n] for n in names},
-                            str(out)),
-                      backend="gloo", init_method=f"file://{out}/store",
-                      timeout=60, join_timeout=SPAWN_LIMIT)
-            seconds[w] = time.perf_counter() - t0
-            got[w] = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
-                      for r in range(w)]
-        for proc in refs.values():
-            _, err = proc.communicate(timeout=600)
-            assert proc.returncode == 0, err[-4000:]
-    finally:
-        for proc in refs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.communicate()
-    ref = {}
-    for w in worlds:
-        with np.load(tmp / f"ref{w}.npz") as z:
-            ref.update(dict(z))
-    return {"ref": ref, "world": got, "seconds": seconds}
+    return ref.run_cases({n: c for n, c in CASES.items()
+                          if slow or n not in SLOW},
+                         tmp_path_factory.mktemp("train_mesh"))
 
 
 def ranks_of(runs, name):
-    return [r["cases"][name] for r in runs["world"][world_of(name)]]
-
-
-def rel_l2(got, want) -> float:
-    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-    return float(np.linalg.norm(got - want)
-                 / max(np.linalg.norm(want), 1e-30))
+    return ref.ranks_of(runs, name, CASES[name])
 
 
 # ---------------------------------------------------------------------------
@@ -246,30 +113,12 @@ def rel_l2(got, want) -> float:
 
 @pytest.mark.parametrize("name", NAMES)
 def test_loss_and_grad_norm_match_the_reference_step(runs, name):
-    ranks = ranks_of(runs, name)
-    for i, m in enumerate(ranks[0]["metrics"]):
-        for k in ("loss", "grad_norm"):
-            want = float(runs["ref"][f"{name}/m/{i}/{k}"])
-            np.testing.assert_allclose(m[k + "_f"], want, rtol=METRIC_RTOL,
-                                       err_msg=f"step {i} {k}")
-        assert m["lr_f"] == float(runs["ref"][f"{name}/m/{i}/lr"])
-    for r in ranks[1:]:                      # equal on every rank
-        assert [{k: m[k] for k in ("loss", "grad_norm", "lr")}
-                for m in r["metrics"]] == \
-            [{k: m[k] for k in ("loss", "grad_norm", "lr")}
-             for m in ranks[0]["metrics"]]
+    ref.check_metrics(runs, name, CASES[name])
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_every_updated_leaf_matches_the_reference(runs, name):
-    whole = ranks_of(runs, name)[0]["whole"]
-    want = {k[len(name) + 3:]: v for k, v in runs["ref"].items()
-            if k.startswith(f"{name}/w/")}
-    assert set(whole) == set(want)
-    worst = max((rel_l2(whole[k], want[k]), k) for k in want
-                if want[k].dtype.kind == "f")
-    assert worst[0] <= GRAD_REL_L2, worst
-    assert np.array_equal(whole["o/step"], want["o/step"])
+    ref.check_leaves(runs, name, CASES[name])
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -277,29 +126,7 @@ def test_each_rank_holds_only_its_shards(runs, name):
     """Between steps: every leaf of params, moments and batch has its
     shard's shape under the reference's specs, and its storage holds
     that shard's bytes and no more."""
-    from repro_torch.core.tree import tree_leaves_with_path
-    case = CASES[name]
-    params, batch = tr.case_inputs(name, case)
-    stub = meshlib.Mesh(tuple(case["mesh"]), tuple(case["axes"]), "cpu")
-    pspecs = meshlib.param_specs(params, stub)
-    zspecs = meshlib.zero1_specs(pspecs, params, stub)
-    want = {"o/step": ((), 4)}
-    for pre, tree, specs in (("p", params, pspecs), ("o/mu", params, zspecs),
-                             ("o/nu", params, zspecs),
-                             ("b", batch, meshlib.batch_specs(batch, stub))):
-        spec_of = dict(tree_leaves_with_path(specs, is_leaf=meshlib.is_spec))
-        for path, leaf in tree_leaves_with_path(tree):
-            shape = list(leaf.shape)
-            for d, ax in enumerate(spec_of[path]):
-                for a in (() if ax is None else
-                          (ax,) if isinstance(ax, str) else ax):
-                    shape[d] //= stub.shape[a]
-            key = "/".join((pre,) + tuple(map(str, path)))
-            want[key] = (tuple(shape), int(np.prod(shape)) * leaf.itemsize)
-    for r in ranks_of(runs, name):
-        assert r["held"] == want
-    split = case["batch"] % int(np.prod(case["mesh"][:-1])) == 0
-    assert all(r["batch_split"] == split for r in ranks_of(runs, name))
+    ref.check_held(runs, name, CASES[name])
 
 
 def test_the_drop_case_drops():
@@ -378,7 +205,3 @@ def test_copy_and_reduce_are_megatrons_pair(runs, w):
         assert y == [sum(([q + 1.0] * 2 for q in range(w)), [])] * 2
         cols = np.arange(2 * w, dtype=np.float64)[2 * rank:2 * rank + 2]
         assert g == [(cols * w).tolist()] * 2
-
-
-if __name__ == "__main__" and sys.argv[1:2] == ["--ref"]:
-    _reference(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))

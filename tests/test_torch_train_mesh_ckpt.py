@@ -13,8 +13,12 @@ step onto (1, 2) (``tests/train_mesh_ranks.py::ckpt_main``). Held:
   * every rank restored onto (4, 1), (1, 2), and a single process
     (the logical mesh), holds exactly its slice of each saved leaf, and
     one step runs finite there;
-  * the VLM, hybrid, RWKV and encoder-decoder families refuse a process
-    mesh, naming ROADMAP A14f.
+  * the same for the VLM (Qwen2-VL reduced, ``positions3`` given) and
+    the encoder-decoder (SeamlessM4T reduced: the ``enc``/``dec``/
+    ``xattn`` leaves) from a (2, 2) mesh, restored onto (4, 1) and a
+    single process;
+  * the hybrid and RWKV families refuse a process mesh, naming ROADMAP
+    A14f.
 """
 import json
 import os
@@ -41,23 +45,39 @@ from repro_torch.train.trainer import shard_train_step
 
 SPAWN_LIMIT = 180.0
 RESTORES = {4: (4, 1), 2: (1, 2)}
+ARCH = "qwen3-0.6b"
+FAMILY_ARCHS = {"vlm": "qwen2-vl-72b", "encdec": "seamless-m4t-large-v2"}
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("train_mesh_ckpt")
+def spawn_ckpt(tmp, arch, worlds):
+    """``ckpt_main`` of ``arch`` at each (world, shape) of ``worlds``,
+    one checkpoint directory for all."""
     directory = tmp / "ckpt"
     got = {}
-    for w, shape in ((4, (2, 2)), (2, None)):
+    for w, shape in worlds:
         out = tmp / f"world{w}"
         out.mkdir()
         run_ranks(tr.ckpt_main, w, args=(str(directory), str(out), shape,
-                                         RESTORES[w]),
+                                         RESTORES[w], arch),
                   backend="gloo", init_method=f"file://{out}/store",
                   timeout=60, join_timeout=SPAWN_LIMIT)
         got[w] = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
                   for r in range(w)]
-    return {"dir": str(directory), "world": got, "tmp": tmp}
+    return {"dir": str(directory), "world": got, "tmp": tmp, "arch": arch}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return spawn_ckpt(tmp_path_factory.mktemp("train_mesh_ckpt"), ARCH,
+                      ((4, (2, 2)), (2, None)))
+
+
+@pytest.fixture(scope="module")
+def family_runs(tmp_path_factory):
+    """Each new family saved from (2, 2) and restored onto (4, 1)."""
+    return {f: spawn_ckpt(tmp_path_factory.mktemp(f"ckpt_{f}"), arch,
+                          ((4, (2, 2)),))
+            for f, arch in FAMILY_ARCHS.items()}
 
 
 def whole_tree(runs):
@@ -71,14 +91,14 @@ def manifest(path):
         return json.load(f)
 
 
-def template():
-    cfg = configs.get_config("qwen3-0.6b").reduced()
+def template(arch):
+    cfg = configs.get_config(arch).reduced()
     _, shapes, _ = abstract_params(cfg)
     return {"params": shapes, "opt": {"mu": shapes, "nu": shapes,
                                       "step": None}}
 
 
-def test_mesh_save_is_the_one_device_save(runs):
+def check_one_device_save(runs):
     one = ckpt.save_checkpoint(str(runs["tmp"] / "one"), 2,
                                whole_tree(runs), extra={"from": [2, 2]})
     mesh_dir = os.path.join(runs["dir"], "step_2")
@@ -94,7 +114,7 @@ def test_mesh_save_is_the_one_device_save(runs):
                     assert a[k].tobytes() == b[k].tobytes(), k
 
 
-def test_reference_loads_the_mesh_save(runs):
+def check_reference_loads(runs):
     whole = whole_tree(runs)
 
     def as_np(t):
@@ -112,7 +132,7 @@ def test_reference_loads_the_mesh_save(runs):
         assert have[path].tobytes() == w.tobytes(), path
 
 
-def test_resume_on_the_same_mesh_is_bit_for_bit(runs):
+def check_resume(runs):
     for r in runs["world"][4]:
         assert r["same"] and r["leaves"] > 0
         assert r["at"] == 2 and r["extra"] == {"from": [2, 2]}
@@ -121,8 +141,7 @@ def test_resume_on_the_same_mesh_is_bit_for_bit(runs):
     assert len({tuple(r["losses"]) for r in runs["world"][4]}) == 1
 
 
-@pytest.mark.parametrize("w", sorted(RESTORES))
-def test_elastic_restore_gives_each_rank_its_exact_slice(runs, w):
+def check_elastic_slices(runs, w):
     shape = RESTORES[w]
     whole = whole_tree(runs)
     stub = meshlib.Mesh(shape, ("data", "model"), "cpu")
@@ -149,9 +168,10 @@ def test_elastic_restore_gives_each_rank_its_exact_slice(runs, w):
         assert np.isfinite(got["losses"]).all()
 
 
-def test_elastic_restore_onto_a_single_process(runs):
+def check_single_process_restore(runs):
     mesh = meshlib.make_host_mesh(1, 1, device="cpu")
-    state, extra, step = elastic_restore(runs["dir"], template(), mesh)
+    state, extra, step = elastic_restore(runs["dir"],
+                                         template(runs["arch"]), mesh)
     assert step == 2
     whole = whole_tree(runs)
     for (p, a), (_, b) in zip(tree_leaves_with_path(state),
@@ -159,8 +179,54 @@ def test_elastic_restore_onto_a_single_process(runs):
         assert a.dtype == b.dtype and torch.equal(a, b), p
 
 
-FAMILIES = {"vlm": "qwen2-vl-72b", "hybrid": "jamba-1.5-large-398b",
-            "ssm": "rwkv6-1.6b", "encdec": "seamless-m4t-large-v2"}
+def test_mesh_save_is_the_one_device_save(runs):
+    check_one_device_save(runs)
+
+
+def test_reference_loads_the_mesh_save(runs):
+    check_reference_loads(runs)
+
+
+def test_resume_on_the_same_mesh_is_bit_for_bit(runs):
+    check_resume(runs)
+
+
+@pytest.mark.parametrize("w", sorted(RESTORES))
+def test_elastic_restore_gives_each_rank_its_exact_slice(runs, w):
+    check_elastic_slices(runs, w)
+
+
+def test_elastic_restore_onto_a_single_process(runs):
+    check_single_process_restore(runs)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_mesh_save_is_the_one_device_save(family_runs, family):
+    check_one_device_save(family_runs[family])
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_mesh_save_loads_into_the_reference(family_runs, family):
+    check_reference_loads(family_runs[family])
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_resume_on_the_same_mesh_is_bit_for_bit(family_runs,
+                                                       family):
+    check_resume(family_runs[family])
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_elastic_restore_onto_4x1(family_runs, family):
+    check_elastic_slices(family_runs[family], 4)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
+def test_family_elastic_restore_onto_a_single_process(family_runs, family):
+    check_single_process_restore(family_runs[family])
+
+
+FAMILIES = {"hybrid": "jamba-1.5-large-398b", "ssm": "rwkv6-1.6b"}
 
 
 @pytest.mark.parametrize("family", sorted(FAMILIES))

@@ -1,10 +1,10 @@
-"""The rank side of tests/test_torch_train_mesh.py and
-tests/test_torch_train_mesh_ckpt.py: functions that
+"""The rank side of tests/test_torch_train_mesh*.py: functions that
 ``distributed.spawn.run_ranks`` runs on every rank of a gloo group on the
-CPU (torch and repro_torch only). Each writes what its rank saw to a
-pickle under ``out_dir``.
+CPU (torch, repro_torch and chip_smoke.py's NumPy position builder,
+never JAX). Each writes what its rank saw to a pickle under ``out_dir``.
 """
 import dataclasses
+import importlib.util
 import os
 import pickle
 from pathlib import Path
@@ -21,6 +21,14 @@ from repro_torch.optim import adamw_init
 
 SEED = 0
 
+# chip_smoke.py's M-RoPE position builder (numpy only), so the smoke's
+# positions3 is the one these cases hold against the reference
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(_smoke)
+vlm_positions3 = _smoke.vlm_positions3
+
 
 def case_config(case):
     cfg = configs.get_config(case["arch"]).reduced(**case.get("ov", {}))
@@ -31,21 +39,32 @@ def case_config(case):
 
 def case_inputs(name, case):
     """The case's params (drawn by the port from SEED) and batch, as
-    NumPy trees: the same arrays go to the reference."""
+    NumPy trees: the same arrays go to the reference. ``grid``: the VLM's
+    ``positions3`` given (``vlm_positions3``); ``src``: the encoder's
+    source length (the target's is ``seq // 2``); ``mask``: a loss mask
+    uneven across the data shards."""
     from repro_torch.data import make_batch
     cfg = case_config(case)
     params = build_model(cfg, device="cpu").init(SEED)
-    batch = make_batch(cfg, batch=case["batch"], seq=case["seq"], seed=3,
-                       device="cpu")
+    batch = {k: v.numpy() for k, v in make_batch(
+        cfg, batch=case["batch"], seq=case["seq"], seed=3,
+        device="cpu").items()}
+    if "grid" in case:
+        s_img = batch["patch_embeds"].shape[1]
+        batch["positions3"] = vlm_positions3(
+            case["batch"], s_img, batch["tokens"].shape[1], case["grid"])
+    if "src" in case:
+        rng = np.random.default_rng(4)
+        batch["src_embeds"] = rng.normal(
+            size=(case["batch"], case["src"], cfg.d_model)).astype(
+                np.float32)
     if case.get("mask"):
-        # uneven across data shards: the first rows keep 3 tokens, the
-        # last loses one
-        mask = torch.ones(case["batch"], case["seq"])
+        # the first rows keep 3 tokens, the last loses one
+        mask = np.ones(batch["labels"].shape, np.float32)
         mask[0, 3:] = 0
         mask[-1, :1] = 0
         batch["loss_mask"] = mask
-    to_np = lambda t: t.numpy()
-    return tree_map(to_np, params), {k: to_np(v) for k, v in batch.items()}
+    return tree_map(lambda t: t.numpy(), params), batch
 
 
 def _flat(tree) -> dict:
@@ -115,7 +134,7 @@ def train_main(rank, world, inputs_path, cases, out_dir):
         ps, ospecs, bs = step.in_specs
         p = meshlib.shard_tree(params, ps, mesh)
         o = meshlib.shard_tree(opt, ospecs, mesh)
-        b = meshlib.shard_tree(batch, bs, mesh)
+        b = meshlib.batch_block(batch, bs, mesh)
         metrics = []
         for _ in range(case["steps"]):
             p, o, m = step(p, o, b)
@@ -177,20 +196,32 @@ def _probes(rank, world):
     return got
 
 
-def ckpt_main(rank, world, directory, out_dir, shape, restore_shape):
-    """(2, 2) at world 4: two steps of Qwen3 reduced (bf16 moments), a
+def ckpt_inputs(arch):
+    """The checkpoint cases' reduced config and 4 x 16 batch (the VLM's
+    with ``positions3`` given)."""
+    from repro_torch.data import make_batch
+    cfg = configs.get_config(arch).reduced()
+    batch = make_batch(cfg, batch=4, seq=16, seed=5, device="cpu")
+    if cfg.family == "vlm":
+        s_img = batch["patch_embeds"].shape[1]
+        batch["positions3"] = torch.from_numpy(vlm_positions3(
+            4, s_img, batch["tokens"].shape[1], (1, 1, s_img)))
+    return cfg, batch
+
+
+def ckpt_main(rank, world, directory, out_dir, shape, restore_shape,
+              arch="qwen3-0.6b"):
+    """(2, 2) at world 4: two steps of ``arch`` reduced (bf16 moments), a
     save at step 2 from the mesh, a third step; then a resume from step 2
     on the same mesh and its third step; then ``elastic_restore`` of
     step 2 onto ``restore_shape`` and one step there. At other worlds
     only the restore onto ``restore_shape``."""
-    from repro_torch.data import make_batch
     from repro_torch.launch.dryrun import abstract_params
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.elastic import elastic_restore
     from repro_torch.train.trainer import Trainer
-    cfg = configs.get_config("qwen3-0.6b").reduced()
+    cfg, batch = ckpt_inputs(arch)
     model = build_model(cfg, device="cpu")
-    batch = make_batch(cfg, batch=4, seq=16, seed=5, device="cpu")
     _, template, _ = abstract_params(cfg)
     template = {"params": template, "opt": {"mu": template, "nu": template,
                                             "step": None}}
@@ -200,7 +231,7 @@ def ckpt_main(rank, world, directory, out_dir, shape, restore_shape):
         trainer = Trainer(model=model, mesh=mesh, warmup=1, total_steps=8)
         step = trainer.jitted_step(batch)
         p, o = state
-        b = meshlib.shard_tree(batch, step.in_specs[2], mesh)
+        b = meshlib.batch_block(batch, step.in_specs[2], mesh)
         losses = []
         for _ in range(steps):
             p, o, m = step(p, o, b)
