@@ -100,8 +100,9 @@ the script exits non-zero without its result line:
               (``SERVE_MODELS``). Through ``ServeLoop``: Qwen3-0.6B whole, 8
               requests of 128-512 tokens in 2 waves of 4, 32 new tokens;
               DBRX's widths at 2 of its 40 layers, 2 requests of 128-256
-              tokens, 16 new, the MoE dropless; RWKV-6 1.6B whole, as
-              Qwen3; Jamba 1.5 Large's widths at one superblock cut to 2
+              tokens, 16 new, the MoE dropless; RWKV-6 1.6B's widths at 4
+              of its 24 layers (its eager WKV loop's time), as Qwen3;
+              Jamba 1.5 Large's widths at one superblock cut to 2
               layers (a Mamba layer, an attention layer with the dropless
               MoE), as DBRX. Through the model API (``serve_encdec``):
               seamless-m4t-large-v2 whole, 4 sequences over 512 seeded
@@ -148,7 +149,8 @@ the script exits non-zero without its result line:
               ops without a deterministic CUDA implementation named), the
               checkpoints in a temp dir under build/ removed after. (b)
               one f32 step of Qwen3-0.6B whole at 1 x 128 against the
-              same step in float64 on the CPU from the same weights: the
+              same step in float64 (on the card; a MoE model's on the
+              CPU) from the same weights: the
               loss, every clipped gradient leaf and the global norm
               (``check_train_step``). (c) the same check for one reduced
               step of qwen2-vl, dbrx, jamba (attention period 2), rwkv6
@@ -165,7 +167,8 @@ the script exits non-zero without its result line:
               holding only its slice of phase 11's tables on its card, the
               exchange over torch.distributed: an nccl group over every
               visible card (world 1 on a one-card machine), then gloo
-              worlds 2 and 4 on card 0, each rank its own CUDA context,
+              worlds 2 and 4 on card 0 side by side (``run_groups``; so
+              in phases 14 and 16), each rank its own CUDA context,
               the buckets staged through pinned host memory. The ranks
               reuse phase 1's kernel build. Gathers (zipf and uniform),
               integer-valued f32 ADD and i32 MIN bit for bit: each rank's
@@ -173,8 +176,9 @@ the script exits non-zero without its result line:
               ``scatter_reduce`` on the whole table, and the whole put
               back together by ``gather_blocks``; ``ShardStats`` against
               NumPy owner counts; one B1 or one B2 launch per rank per
-              call. Then per group the warm median of 3 (slowest rank)
-              per call beside phase 11's logical time at that mesh size,
+              call. Then per group the warm median of 3 (slowest rank;
+              the gloo groups time one warm call) per call beside phase
+              11's logical time at that mesh size,
               and each rank's peak memory. A rank that raises, dies or
               hangs (collectives time out after 120 s, a group after
               300 s) fails the phase.
@@ -195,7 +199,8 @@ the script exits non-zero without its result line:
               once per sharded RMW node of the 2-D apps in which the rank
               serves rows (``ShardStats.received``), the 1-D apps none. The gloo groups keep every size and cut depth
               (``PS_GLOO_CUTS``, printed as ``reduced`` lines). Per group:
-              the slowest rank's warm times beside phase 8's pipelined and
+              the slowest rank's times (the window's warm run; the apps'
+              checked run) beside phase 8's pipelined and
               phase 11's 4-shard times, collectives and agreements per
               window, B1/B2 per rank, peak memory per rank.
  15. serving  ``replay_trace`` and ``KvPoolServer`` over a ``ProcessMesh``
@@ -213,7 +218,8 @@ the script exits non-zero without its result line:
               rank's final slice the model pool's rows, the growths the
               model's. B1/B2 per rank those of the plans' sharded 2-D
               nodes in which it serves rows. The gloo groups cut depth
-              (``PV_GLOO_CUTS``: the pool's decode steps). Per group: the
+              (``PV_GLOO_CUTS``: the trace's events, the pool's decode
+              steps). Per group: the
               slowest rank's replay wall, virtual p50/p99 and ms per
               ``decode_batch`` beside phases 9b and 9c, peak and pool
               bytes per rank, rows moved per growth, collectives and
@@ -235,16 +241,19 @@ the script exits non-zero without its result line:
               gloo groups run (a) and (d) at TM_GLOO_LAYERS of the 28
               layers, widths kept. (b) one f32 step of Qwen3-0.6B whole
               (every group) at 2 x 128 on the mesh against the one-device
-              float64 step: loss, global norm and every updated leaf
-              (params and moments, gathered) within the TRAIN_* bounds;
-              each rank's device and host peaks over it. (c) dbrx
-              reduced likewise: EP over (1, w) with w experts, and at
-              world 4 experts over ``model`` on (2, 2) with a capacity
-              factor that drops tokens. (d) the warm
-              bf16 step of (a) (slowest rank, median of 3) beside phase
-              12's, tokens/s, peak per rank, and one step with every
-              collective counted, its payload bytes and its share of the
-              step. (e) B1/B2 launches 0 on every rank.
+              float64 step, both from AdamW's state at step 200, past
+              the warmup (lr > 0), the reference computed once before the
+              group spawns and read by each rank for its own blocks: loss,
+              global norm and every updated leaf (params and moments)
+              within the TRAIN_* bounds; each rank's device and host
+              peaks over it. (c) dbrx reduced likewise: EP over (1, w)
+              with w experts, and at world 4 experts over ``model`` on
+              (2, 2) with a capacity factor that drops tokens. (d) the
+              warm bf16 step of (a) (slowest rank, median of 3; the gloo
+              groups time one) beside phase 12's, tokens/s, peak per
+              rank, and one step with every collective counted, its
+              payload bytes and its share of the step. (e) B1/B2
+              launches 0 on every rank.
  17. train    the same in phase 13's groups for the encoder-decoder
      families and VLM families. (a) SeamlessM4T-large-v2
               whole (12 + 12 layers, 1.02 B parameters, bf16) at 8 x 512
@@ -262,6 +271,26 @@ the script exits non-zero without its result line:
               1 of 80 layers on the meshes whose reckoned peaks fit. (d)
               the warm bf16 step of (a) beside phase 16's, with its
               collectives. (e) B1/B2 launches 0 on every rank.
+ 18. train    the same in phase 13's groups for the hybrid and RWKV-6
+     recurrent families: Mamba's selective scan on the rank's channels, the
+              WKV recurrence on its heads. (a) RWKV-6-1.6B whole (24
+              layers, 1.34 B parameters, bf16) at 8 x 32: steps, a
+              checkpoint at step 2 from the mesh, a resume on the same
+              mesh bit for bit, each rank's bytes its shards'; the gloo
+              groups at 1 of 24 layers. (b) the one-device f32 step of
+              RWKV-6 whole against float64, printed as measured; then one
+              step of it at 8 of 24 layers in float64 on the mesh against
+              the one-device float64 step, computed once before the
+              groups: loss and global norm within 1e-9, every updated
+              leaf (AdamW's f32 output) within one f32 ulp, 2^-23, of
+              relative L2. (c1) Jamba reduced (an attention layer and 7 Mamba
+              layers, MoE over 4 experts) in f32 likewise within 1e-5
+              and 2e-5. (c2) one bf16 step of Jamba 1.5 Large at
+              published widths and one superblock (an attention and a
+              Mamba layer, dense FFNs) on (1, 1) and (1, 2). (d) the warm
+              bf16 step of (a) beside phases 16's and 17's, with its
+              collectives, and (c2)'s steps at (1, 1). (e) B1/B2 launches
+              0 on every rank.
 
 Tolerances: gathers, integer RMWs and the apps (exact by construction) bit
 for bit; float MIN/MAX bit for bit (NaN where NaN); the RMW aliasing
@@ -274,7 +303,7 @@ replay's float program regions rtol=1e-4/atol=1e-5 of the plain engine
 forward over the same tokens (cuBLAS reduces in another order per
 shape); RWKV-6, whose random weights amplify that rounding ~1e4-fold,
 is held to the same bound in float64, and in f32 on its prefill rows
-only; a train step in f32 on the card against float64 on the CPU: the
+only; a train step in f32 on the card against float64: the
 loss and the global norm within 1e-5 relative, every gradient leaf
 within a relative L2 error of 1e-4.
 
@@ -288,8 +317,9 @@ checked calls per group, summed over its ranks,
 ``process_service_launches`` phase 14's checked window and apps per
 group, one count per rank, ``process_serving_launches`` phase 15's
 replay and KV pool per group, one count per rank, ``train_mesh_launches``
-phase 16 and ``train_families_launches`` phase 17 per group, one count
-per rank) and {"ok": true, "device": {...}}.
+phase 16, ``train_families_launches`` phase 17 and
+``train_recurrent_launches`` phase 18 per group, one count per rank) and
+{"ok": true, "device": {...}}.
 """
 from __future__ import annotations
 
@@ -1293,7 +1323,7 @@ def phase_pipeline(dev, A, seed: int):
 
 # --- phase 8 ---------------------------------------------------------------
 
-APP_RUNS = 3                       # warm runs per path, after one warm-up
+APP_RUNS = 1                       # warm runs per path, after one warm-up
 # each app at a size its users run; the sizes are phase 8's only knobs,
 # so a rehearsal on the CPU shrinks them (widths d, page_size, lanes are
 # part of each configuration and never cut)
@@ -2057,8 +2087,13 @@ SERVE_MODELS = {
     # matmuls have other shapes by ~1e-3 in f32. The f32 run holds its
     # prefill rows to the forward over the same prompt (same shapes) and
     # measures the rest; a float64 run of the same weights holds every
-    # row ("check_dtype").
-    "rwkv6-1.6b": dict(overrides={}, batch_slots=4, max_cache_len=1024,
+    # row ("check_dtype"). Its eager WKV loop runs a layer and time step
+    # at a time (~0.155 ms each): at 24 layers the model's seven serve
+    # runs took 97 s of the smoke's 1200, so the depth is cut.
+    "rwkv6-1.6b": dict(overrides={"n_layers": 4},
+                       reduced="layers 24 -> 4 (the run's time: the eager "
+                               "WKV loop, ~0.155 ms a layer and time step)",
+                       batch_slots=4, max_cache_len=1024,
                        n_requests=8, prompt=(128, 512), new_tokens=32,
                        check_dtype="float64"),
     "jamba-1.5-large-398b": dict(
@@ -2448,7 +2483,7 @@ def phase_serve(dev, seed: int):
 # --- phase 11 --------------------------------------------------------------
 
 SHARD_MESHES = (1, 2, 4, 8)        # logical shards, all on the one card
-SHARD_RUNS = 3                     # warm timed runs per path
+SHARD_RUNS = 2                     # warm timed runs per path
 # phase 8's configurations that phase 11 serves over AccessService(mesh=4)
 SHARD_APPS = ("spmv_block", "embedding_bag")
 # predicted B1/B2 launches per sharded call on a 2-D table: the owners'
@@ -2678,8 +2713,9 @@ TRAIN_RESULTS: dict = {}           # (d)'s step, printed beside phase 16's
 
 def check_train_step(what, dev, cfg, params, batch, *, mesh=None):
     """One f32 train step's gradient half (loss, clipped gradients,
-    global norm) on ``dev`` against the same step in float64 on the CPU
-    from the same weights and batch; raises past the TRAIN_* bounds.
+    global norm) on ``dev`` against the same step in float64 from the
+    same weights and batch (on ``dev``; a MoE model's on the CPU, as
+    ``tf_reference``); raises past the TRAIN_* bounds.
     Returns the card's (loss, clipped grads, norm) and the errors."""
     import contextlib
     import dataclasses
@@ -2697,22 +2733,23 @@ def check_train_step(what, dev, cfg, params, batch, *, mesh=None):
     wide = dataclasses.replace(cfg, dtype="float64", param_dtype="float64",
                                moe_a2a=False)
     cpu = torch.device("cpu")
-    to64 = lambda t: t.to(cpu, torch.float64) if t.is_floating_point() \
-        else t.to(cpu)
+    ref_dev = dev if cfg.n_experts == 0 else cpu
     loss64, grads64, norm64 = loss_and_clipped_grads(
-        build_model(wide, device=cpu), tree_map(to64, params),
-        {k: to64(v) for k, v in batch.items()})
+        build_model(wide, device=ref_dev),
+        tree_map(lambda t: to_float64(t, ref_dev), params),
+        {k: to_float64(v, ref_dev) for k, v in batch.items()})
     loss_err = abs(float(loss) - float(loss64)) / abs(float(loss64))
     norm_err = abs(float(norm) - float(norm64)) / abs(float(norm64))
     worst, leaves = ("", 0.0), 0
     for (p, g), (_, w) in zip(tree_leaves_with_path(grads),
                               tree_leaves_with_path(grads64)):
-        err = float((g.to(cpu, torch.float64) - w).norm()
+        err = float((g.to(w.device, torch.float64) - w).norm()
                     / w.norm().clamp(min=1e-300))
         leaves += 1
         if err > worst[1] or not err == err:
             worst = ("/".join(map(str, p)), err)
-    log(f"phase 12 {what}: f32 on the card against float64 on the CPU: "
+    log(f"phase 12 {what}: f32 on the card against float64 on "
+        f"{ref_dev.type}: "
         f"loss {float(loss):.6f} (rel err {loss_err:.3e}), {leaves} "
         f"gradient leaves, worst rel L2 {worst[1]:.3e} ({worst[0]}), "
         f"global norm {float(norm):.6f} (rel err {norm_err:.3e})")
@@ -2939,9 +2976,56 @@ def phase_train(dev, seed: int):
 # context, the buckets staged through pinned host memory
 PM_GROUPS = (("nccl", None, None), ("gloo", 2, "cuda:0"),
              ("gloo", 4, "cuda:0"))
-PM_RUNS = 3                        # warm timed calls per path (median)
+# warm timed calls per path (median); the gloo groups time one
+PM_RUNS = {"nccl": 3, "gloo": 1}
 PM_COLLECTIVE_S = 120              # init_process_group's timeout
 PM_JOIN_S = 300                    # a group not done by then fails
+
+
+def group_batches(groups):
+    """Phase 13's groups in the batches they run in: the nccl group alone,
+    then the gloo groups side by side (``run_side_by_side``)."""
+    alone = [[g] for g in groups if g[0] != "gloo"]
+    gloo = [g for g in groups if g[0] == "gloo"]
+    return alone + ([gloo] if gloo else [])
+
+
+def run_side_by_side(jobs: list) -> list:
+    """Every job of a batch at once, each from a thread of this process,
+    and their results in order. Phases 13, 14 and 16 run their gloo
+    groups so: both worlds share card 0 and their ranks wait mostly on
+    host collectives, so the two take about the longer one's time, and
+    their timings (host-bound already) were taken side by side. A job
+    that raises is raised once every job has ended."""
+    from concurrent.futures import ThreadPoolExecutor
+    if len(jobs) == 1:
+        return [jobs[0]()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        futures = [ex.submit(job) for job in jobs]
+        return [f.result() for f in futures]
+
+
+def run_groups(groups, spawn) -> list:
+    """``spawn(backend, world, device)`` for each group, batch by batch
+    (``group_batches``). Returns ``(backend, world, device, result,
+    seconds)`` per group, in the groups' order."""
+    import torch
+
+    def timed_spawn(backend, world, device):
+        world = torch.cuda.device_count() if world is None else world
+        t0 = time.perf_counter()
+        res = spawn(backend, world, device)
+        return backend, world, device, res, time.perf_counter() - t0
+    out = []
+    for batch in group_batches(groups):
+        out += run_side_by_side([lambda g=g: timed_spawn(*g) for g in batch])
+    return out
+
+
+def side_note(backend: str) -> str:
+    """What a gloo group's summary line says of the group beside it."""
+    return " (side by side with the other gloo group)" \
+        if backend == "gloo" else ""
 
 
 def pm_data(dev, seed: int, rows: tuple):
@@ -3050,7 +3134,7 @@ def pm_rank(rank, world, backend, device, seed):
     empty_cache(dev)
     paths = {"gather zipf": calls[0][2], "rmw ADD zipf": calls[2][2]}
     times = {k: [] for k in paths}
-    for _ in range(PM_RUNS):
+    for _ in range(PM_RUNS[backend]):
         for k, fn in paths.items():
             dist.barrier()
             synchronize(dev)
@@ -3074,28 +3158,28 @@ def phase_process_mesh(dev, seed: int, logical_ms: dict, groups=PM_GROUPS):
     bit for bit (each rank's block or slice, and the whole through
     ``gather_blocks``), ``ShardStats`` against NumPy, one B1 or one B2
     launch per rank per call; then per group the warm median of PM_RUNS
-    (slowest rank) beside phase 11's logical time at that mesh size, and
-    each rank's peak memory. Returns each kernel's launches per group."""
+    (slowest rank; one warm call in the gloo groups) beside phase 11's
+    logical time at that mesh size, and each rank's peak memory. Returns
+    each kernel's launches per group."""
     import tempfile
-    import torch
     from repro_torch.distributed.spawn import run_ranks
     empty_cache(dev)
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     out = {"row_table_gather": {}, "row_table_rmw": {}}
-    for backend, world, device in groups:
-        world = torch.cuda.device_count() if world is None else world
-        t0 = time.perf_counter()
+
+    def spawn(backend, world, device):
         with tempfile.TemporaryDirectory(dir=build) as tmp:
-            ranks = run_ranks(pm_rank, world, args=(backend, device, seed),
-                              backend=backend,
-                              init_method=f"file://{tmp}/store",
-                              timeout=PM_COLLECTIVE_S, join_timeout=PM_JOIN_S)
-        wall = time.perf_counter() - t0
+            return run_ranks(pm_rank, world, args=(backend, device, seed),
+                             backend=backend,
+                             init_method=f"file://{tmp}/store",
+                             timeout=PM_COLLECTIVE_S, join_timeout=PM_JOIN_S)
+    for backend, world, device, ranks, wall in run_groups(groups, spawn):
         name = f"{backend}-{world}"
         for k in out:
             out[k][name] = sum(r["launches"][k] for r in ranks)
-        ms = {k: [max(r["ms"][k][i] for r in ranks) for i in range(PM_RUNS)]
+        ms = {k: [max(r["ms"][k][i] for r in ranks)
+                  for i in range(PM_RUNS[backend])]
               for k in ranks[0]["ms"]}
         logical = logical_ms.get(world, {})
         for k, runs in ms.items():
@@ -3116,13 +3200,13 @@ def phase_process_mesh(dev, seed: int, logical_ms: dict, groups=PM_GROUPS):
             f"peak per rank "
             f"{[round(r['peak_gib'], 2) for r in ranks]} GiB allocated; "
             f"rows per rank {[r['rows'] for r in ranks]}; devices "
-            f"{sorted({r['device'] for r in ranks})}; {wall:.1f} s")
+            f"{sorted({r['device'] for r in ranks})}; {wall:.1f} s"
+            f"{side_note(backend)}")
     return out
 
 
 # --- phase 14 --------------------------------------------------------------
 
-PS_RUNS = {"nccl": 2, "gloo": 1}   # warm timed runs after the checked one
 # the gloo groups (host-staged collectives, ~0.5-1.2 s a sharded call)
 # keep every size and cut depth only; the nccl group runs the full depth
 # (hashjoin's depth is its probe windows: 2^22 probes are 64 windows of
@@ -3252,15 +3336,14 @@ def ps_window(rank, dev, mesh, seed, runs):
             "median": statistics.median(times)}
 
 
-def ps_app(rank, dev, mesh, case, runs):
+def ps_app(rank, dev, mesh, case):
     """One app pipelined through ``AccessService(mesh=ProcessMesh,
-    use_kernel=True)``: the checked run's result digest, its B1/B2
-    launches beside the sharded nodes of the windows it flushed (all of
-    them, and those in which this rank serves rows: a rank that owns
-    none of a node's rows has nothing to gather or update, and launches
-    nothing for it), its windows, collectives and agreements; then the
-    warm times."""
-    import statistics
+    use_kernel=True)``: the checked run's result digest and time, its
+    B1/B2 launches beside the sharded nodes of the windows it flushed
+    (all of them, and those in which this rank serves rows: a rank that
+    owns none of a node's rows has nothing to gather or update, and
+    launches nothing for it), its windows, collectives and agreements.
+    No warm run: the checked run is the time every group reports."""
     import torch.distributed as dist
     from repro_torch.kernels.gather import gather as gk
     from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
@@ -3288,26 +3371,17 @@ def ps_app(rank, dev, mesh, case, runs):
     sk.launches = 0
     c0 = eng.collectives
     dist.barrier()
-    got, first = timed(lambda: case.run(prob, mode="pipelined",
-                                        service=svc))
+    got, ms = timed(lambda: case.run(prob, mode="pipelined",
+                                     service=svc))
     launches = {"row_table_gather": gk.launches,
                 "row_table_rmw": sk.launches}
-    sched.flush_async = flush_async    # the warm runs read no stats
     out = {"digest": result_digest(got), "launches": launches,
            "nodes": nodes, "served": served,
            "windows": sched.stats["flushes"],
            "collectives": eng.collectives - c0,
            "agreements": sched.stats["agreements"],
-           "agreement_ms": 1e3 * sched.stats["agreement_s"], "first": first}
-    del got
-    times = []
-    for _ in range(runs):
-        dist.barrier()
-        times.append(timed(lambda: case.run(prob, mode="pipelined",
-                                            service=svc))[1])
-    out.update(ms=times, median=statistics.median(times) if times else
-               first)
-    del prob, svc
+           "agreement_ms": 1e3 * sched.stats["agreement_s"], "ms": ms}
+    del got, prob, svc
     empty_cache(dev)
     return out
 
@@ -3321,14 +3395,13 @@ def ps_rank(rank, world, backend, device, seed, cut):
     dev = mesh.device
     if dev.type == "cuda":
         torch.cuda.set_device(dev)     # a gloo rank's context, before stats
-    runs = PS_RUNS[backend]
     t0 = time.perf_counter()
     empty_cache(dev)
     reset_peak(dev)
     out = {"rank": rank, "device": str(dev),
-           "window": ps_window(rank, dev, mesh, seed, runs), "apps": {}}
+           "window": ps_window(rank, dev, mesh, seed, 1), "apps": {}}
     for case in app_cases(seed, ps_sizes(cut)):
-        out["apps"][case.name] = ps_app(rank, dev, mesh, case, runs)
+        out["apps"][case.name] = ps_app(rank, dev, mesh, case)
     out["peak_gib"] = peak_gib(dev)
     out["seconds"] = time.perf_counter() - t0
     return out
@@ -3349,7 +3422,6 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
     collectives and agreements per window, B1/B2 per rank. Returns each
     kernel's launches per group and rank (window and apps summed)."""
     import tempfile
-    import torch
     from repro_torch.distributed.spawn import run_ranks
     empty_cache(dev)
     build = ROOT / "build"
@@ -3370,19 +3442,18 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
             + ", ".join(f"{k} {APP_SIZES[name][k]} -> {v}"
                         for k, v in c.items()))
     out = {"row_table_gather": {}, "row_table_rmw": {}}
-    for backend, world, device in groups:
-        world = torch.cuda.device_count() if world is None else world
+
+    def spawn(backend, world, device):
+        with tempfile.TemporaryDirectory(dir=build) as tmp:
+            return run_ranks(ps_rank, world,
+                             args=(backend, device, seed, backend == "gloo"),
+                             backend=backend,
+                             init_method=f"file://{tmp}/store",
+                             timeout=PM_COLLECTIVE_S,
+                             join_timeout=PM_JOIN_S)
+    for backend, world, device, ranks, wall in run_groups(groups, spawn):
         cut = backend == "gloo"
         name = f"{backend}-{world}"
-        t0 = time.perf_counter()
-        with tempfile.TemporaryDirectory(dir=build) as tmp:
-            ranks = run_ranks(ps_rank, world,
-                              args=(backend, device, seed, cut),
-                              backend=backend,
-                              init_method=f"file://{tmp}/store",
-                              timeout=PM_COLLECTIVE_S,
-                              join_timeout=PM_JOIN_S)
-        wall = time.perf_counter() - t0
         for k in out:
             out[k][name] = [r["window"]["launches"][k] + sum(
                 a["launches"][k] for a in r["apps"].values())
@@ -3411,13 +3482,13 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
                         f"{a['launches']}, the plans' sharded nodes in "
                         f"which it serves rows call for {want} (of "
                         f"{a['nodes']})")
-            slowest = max(a["median"] for a in rs)
+            slowest = max(a["ms"] for a in rs)
             p8 = APP_RESULTS.get(app, {}).get("ms")
             p11 = SHARD_APP_MS.get(app)
-            log(f"phase 14 {name} {app:13s} warm (slowest rank) "
+            log(f"phase 14 {name} {app:13s} checked run (slowest rank) "
                 f"{slowest:10.3f} ms"
                 f"{' (cut depth)' if cut and app in PS_GLOO_CUTS else ''}; "
-                f"first {max(a['first'] for a in rs):.3f}; phase 8 "
+                f"phase 8 "
                 f"pipelined {'%.3f ms' % p8 if p8 else 'not run'}; phase "
                 f"11 4-shard {'%.3f ms' % p11 if p11 else 'not run'}; "
                 f"B1/B2 per rank "
@@ -3434,15 +3505,16 @@ def phase_process_service(dev, seed: int, groups=PM_GROUPS):
             f"rank; peak per rank {[round(r['peak_gib'], 2) for r in ranks]}"
             f" GiB allocated; devices {sorted({r['device'] for r in ranks})};"
             f" ranks {[round(r['seconds'], 1) for r in ranks]} s; "
-            f"{wall:.1f} s")
+            f"{wall:.1f} s{side_note(backend)}")
     return out
 
 
 # --- phase 15 --------------------------------------------------------------
 
 # the gloo groups (host-staged collectives, ~1-1.7 s a decode step) keep
-# every width and the whole trace, and cut the pool's decode steps
-PV_GLOO_CUTS = {"n_steps": 8}
+# every width and cut depth: the trace's events (its tables stay whole)
+# and the pool's decode steps
+PV_GLOO_CUTS = {"n_events": 500, "n_steps": 8}
 
 
 def pv_replay(rank, dev, mesh, n_events):
@@ -3752,8 +3824,13 @@ def phase_process_serving(dev, seed: int, groups=PM_GROUPS):
 # --- phase 16 --------------------------------------------------------------
 
 TRAIN_CHECK_MESH = (2, 128)        # (b): batch x seq of the f32 step
+# the one-step checks of phases 16-18 start from AdamW's state at this
+# step, past the schedule's warmup of 100, so that lr > 0 and the params
+# move (at step 0 the lr is 0 and only the moments carry the gradient)
+TRAIN_CHECK_STEP = 200
 TM_DROP_CF = 0.5                   # (c): the GSPMD MoE's capacity factor
-TM_TIMED = 3                       # (d): warm timed bf16 steps (median)
+# (d): warm timed bf16 steps (median); the gloo groups time one
+TM_TIMED = {"nccl": 3, "gloo": 1}
 TM_JOIN_S = 900                    # a group not done by then fails
 TM_GLOO_LAYERS = 4                 # the gloo groups' (a)/(d) depth (of 28)
 TM_RESULTS: dict = {}              # (d) per group, printed beside phase 17's
@@ -3842,17 +3919,18 @@ def tm_saved(directory: Path, step: int):
                 yield key, ckpt._decode(z[key], entries[key]["dtype"])
 
 
-def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
-             elastic: bool = True) -> dict:
+def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int,
+             elastic: bool = True, seq: int = 512) -> dict:
     """(a) and (d) on one rank: ``cfg`` (phase 16: Qwen3-0.6B, phase 17:
-    SeamlessM4T-large-v2) in bf16 at 8 x 512 on the group's mesh
+    SeamlessM4T-large-v2, phase 18: RWKV-6) in bf16 at 8 x ``seq`` on the
+    group's mesh
     (``Trainer(mesh=...)``), steps 0-1, a checkpoint at step 2 from the
     mesh, step 2; a resume from it on the same mesh whose step 2 must
     equal bit for bit (deterministic mode); then, in the default mode,
-    ``timed`` timed steps and one step whose collectives are counted and
-    timed; then, with ``elastic``, ``elastic_restore`` of step 2 onto the
-    other shape: every leaf the checkpoint's whole leaf's slice, one
-    finite step."""
+    ``timed`` timed steps and, over several ranks, one step whose
+    collectives are counted and timed; then, with ``elastic``,
+    ``elastic_restore`` of step 2 onto the other shape: every leaf the
+    checkpoint's whole leaf's slice, one finite step."""
     import statistics
     import torch
     import torch.distributed as dist
@@ -3863,6 +3941,7 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
     from repro_torch.train import checkpoint as ckpt
     from repro_torch.train.elastic import elastic_restore
     from repro_torch.train.trainer import Trainer
+    t_start = time.perf_counter()
     shape, other = tm_shapes(dist.get_world_size())
     mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
     dev = mesh.device
@@ -3872,7 +3951,7 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
 
     def trainer_on(m):
         return Trainer(model=model, mesh=m, warmup=1, total_steps=total)
-    pipe = SyntheticTokenPipeline(cfg, 8, 512, seed=seed, device=dev)
+    pipe = SyntheticTokenPipeline(cfg, 8, seq, seed=seed, device=dev)
     step = trainer_on(mesh).jitted_step(pipe.get_batch(0))
     batch = lambda i: meshlib.batch_block(pipe.get_batch(i),
                                           step.in_specs[2], mesh)
@@ -3882,6 +3961,7 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
     reset_peak(dev)
     torch.use_deterministic_algorithms(True, warn_only=True)
     params, opt = trainer_on(mesh).init_state(seed)
+    out["init_s"] = time.perf_counter() - t_start
     out["held"] = tm_held(step, template["params"], params, opt)
     losses = []
     for i in range(2):
@@ -3911,7 +3991,8 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
                              f"({differ[:4]}), loss {float(m2['loss'])} "
                              f"against {losses[-1]}")
     out.update(losses=losses, leaves=len(pairs),
-               held_after=tm_held(step, template["params"], params, opt))
+               held_after=tm_held(step, template["params"], params, opt),
+               resume_s=time.perf_counter() - t_start - out["init_s"])
     del p2, o2, pairs
     torch.use_deterministic_algorithms(False)
     empty_cache(dev)
@@ -3925,22 +4006,25 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
         params, opt, m = step(params, opt, b)
         sync()
         times.append((time.perf_counter() - t0) * 1e3)
-    stats = {"s": 0.0, "calls": {}, "bytes": 0}
-    b = batch(3 + timed)
-    undo = tm_collectives(stats)
-    try:
-        dist.barrier()
-        sync()
-        t0 = time.perf_counter()
-        params, opt, m = step(params, opt, b)
-        sync()
-        stats["step_ms"] = (time.perf_counter() - t0) * 1e3
-    finally:
-        undo()
+    stats = {"s": 0.0, "calls": {}, "bytes": 0, "step_ms": times[-1]}
+    if mesh.size > 1:                  # one rank makes no collective
+        b = batch(3 + timed)
+        undo = tm_collectives(stats)
+        try:
+            dist.barrier()
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            sync()
+            stats["step_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            undo()
     out.update(ms=times, median=statistics.median(times), coll=stats,
                peak_gib=peak_gib(dev), last_loss=float(m["loss"]))
     del params, opt
     empty_cache(dev)
+    t_elastic = time.perf_counter()
+    out["d_s"] = t_elastic - t_start - out["init_s"] - out["resume_s"]
     if other is not None:
         mesh2 = meshlib.make_process_mesh(other, ("data", "model"),
                                           device=device)
@@ -3970,7 +4054,17 @@ def tm_train(rank, device, seed, tmp: Path, cfg, *, timed: int = TM_TIMED,
             raise AssertionError(f"rank {rank}: the step after the elastic "
                                  f"restore is not finite")
         del state
+    out["elastic_s"] = time.perf_counter() - t_elastic
     return out
+
+
+def tm_seconds(a: list) -> str:
+    """Where (a) + (d) spent the slowest rank's seconds (``tm_train``)."""
+    slow = {k: max(x[k] for x in a)
+            for k in ("init_s", "resume_s", "d_s", "elastic_s")}
+    return (f"seconds (slowest rank): set-up {slow['init_s']:.1f}, steps, "
+            f"checkpoint and resume {slow['resume_s']:.1f}, (d) "
+            f"{slow['d_s']:.1f}, elastic restore {slow['elastic_s']:.1f}")
 
 
 def host_rss_gib() -> float:
@@ -3983,110 +4077,56 @@ def host_rss_gib() -> float:
     return 0.0
 
 
-def tm_check(rank, device, seed, what, cfg, shape, b, s):
-    """(b), (c): one f32 step of ``cfg`` on a process mesh of ``shape``
-    against the one-device step in float64 (rank 0, on ``ref_dev``): the
-    loss and the global norm within TRAIN_*_RTOL, every updated leaf
-    (params and AdamW's moments, which carry the clipped gradient),
-    gathered, within TRAIN_GRAD_REL_L2. Returns the rank's device peak
-    over the check, its largest resident host memory of the samples
-    taken after each stage and, on rank 0, the errors."""
+def tm_family_checks(world: int) -> dict:
+    """(c) of phase 16 at ``world``: ``{what: (cfg, mesh shape)}``, dbrx
+    reduced with EP over (1, world) and world experts, and at world 4 its
+    experts over ``model`` on (2, 2) at a capacity that drops tokens."""
     import dataclasses
-    import torch
-    from repro_torch.core.tree import tree_leaves_with_path, tree_map
-    from repro_torch.data import SyntheticTokenPipeline
-    from repro_torch.launch import mesh as meshlib
-    from repro_torch.models import build_model
-    from repro_torch.optim import adamw_init
-    from repro_torch.train.trainer import make_train_step, shard_train_step
-    mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
-    dev = mesh.device
-    empty_cache(dev)
-    reset_peak(dev)
-    model = build_model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
-    batch = SyntheticTokenPipeline(cfg, b, s, seed=seed,
-                                   device=dev).get_batch(0)
-    step = shard_train_step(model, mesh, params, None, batch)
-    ps, ospecs, bs = step.in_specs
-    p = meshlib.shard_tree(params, ps, mesh)
-    o = adamw_init(meshlib.shard_tree(params, ospecs["mu"], mesh),
-                   state_dtype="float32")
-    bb = meshlib.shard_tree(batch, bs, mesh)
-    host = host_rss_gib()
-    ref = None
-    if rank == 0:
-        # the one-device step in float64 (the EP path off; AdamW's math is
-        # f32 in every dtype, so its moments are kept in f32)
-        wide = dataclasses.replace(cfg, dtype="float64",
-                                   param_dtype="float64", moe_a2a=False)
-        ref_dev = dev if cfg.n_experts == 0 else torch.device("cpu")
-        to64 = lambda t: t.to(ref_dev, torch.float64) \
-            if t.is_floating_point() else t.to(ref_dev)
-        p64 = tree_map(to64, params)
-        b64 = {k: to64(v) for k, v in batch.items()}
-        del params
-        p64, o64, m64 = make_train_step(build_model(wide, device=ref_dev))(
-            p64, adamw_init(p64, state_dtype="float32"), b64)
-        ref = ({"p": p64, "o": o64}, {k: float(v) for k, v in m64.items()})
-        del p64, o64
-        host = max(host, host_rss_gib())
-    else:
-        del params
-    empty_cache(dev)
-    p, o, m = step(p, o, bb)
-    sync()
-    host = max(host, host_rss_gib())
-    worst = ("", 0.0)
-    specs = {"p": ps, "o": ospecs}
-    spec_of = dict(tree_leaves_with_path(specs, is_leaf=meshlib.is_spec))
-    want = dict(tree_leaves_with_path(ref[0])) if ref else None
-    for path, t in tree_leaves_with_path({"p": p, "o": o}):
-        whole = meshlib.whole_of(t, spec_of[path], mesh)
-        if want is not None and whole.is_floating_point():
-            w = want[path].to(whole.device, torch.float64)
-            err = float((whole.double() - w).norm()
-                        / w.norm().clamp(min=1e-300))
-            if err > worst[1] or not err == err:
-                worst = ("/".join(map(str, path)), err)
-        del whole
-    peaks = {"peak_gib": peak_gib(dev),
-             "host_gib": max(host, host_rss_gib())}
-    if ref is None:
-        return peaks
-    loss_err = abs(float(m["loss"]) - ref[1]["loss"]) / abs(ref[1]["loss"])
-    norm_err = abs(float(m["grad_norm"]) - ref[1]["grad_norm"]) \
-        / abs(ref[1]["grad_norm"])
-    log(f"phase 16 {what} on {shape}: f32 mesh step against the one-device "
-        f"float64 step: loss {float(m['loss']):.6f} (rel err "
-        f"{loss_err:.3e}), global norm {float(m['grad_norm']):.6f} (rel err "
-        f"{norm_err:.3e}), worst updated leaf rel L2 {worst[1]:.3e} "
-        f"({worst[0]})")
-    if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
-            and worst[1] <= TRAIN_GRAD_REL_L2):
-        raise AssertionError(
-            f"phase 16 {what} on {shape}: the mesh step is off the "
-            f"float64 step (loss {loss_err:.3e}, norm {norm_err:.3e}, "
-            f"leaf {worst[1]:.3e} at {worst[0]}; bounds {TRAIN_LOSS_RTOL}, "
-            f"{TRAIN_NORM_RTOL}, {TRAIN_GRAD_REL_L2})")
-    return {"loss": loss_err, "norm": norm_err, "leaf": worst, **peaks}
+    from repro_torch.configs import get_config
+    dbrx = get_config("dbrx-132b")
+    b, s = TRAIN_FAMILY_CHECK
+    out = {f"(c) dbrx-132b reduced, EP, {world} experts, {b} x {s}": (
+        dataclasses.replace(dbrx.reduced(n_experts=world,
+                                         top_k=min(2, world)),
+                            moe_a2a=True), (1, world))}
+    if world == 4:
+        out[f"(c) dbrx-132b reduced, experts over model, capacity factor "
+            f"{TM_DROP_CF}, {b} x {s}"] = (
+                dbrx.reduced(capacity_factor=TM_DROP_CF), (2, 2))
+    return out
 
 
-def tm_rank(rank, world, backend, device, seed, tmp):
+def f32_config(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+
+
+def tm_rank(rank, world, backend, device, seed, tmp, refs):
     """One rank of phase 16 (spawned): (a) + (d), (b), (c); the kernels'
     launch counters from 0 over the phase's work on this rank. A failure
     is printed with the rank's traceback before it propagates (the spawn
-    names one failed rank only)."""
+    names one failed rank only). The rank drops the parent's reference
+    leaves before it ends (``release_references``)."""
     try:
-        return tm_phases(rank, world, backend, device, seed, tmp)
+        return tm_phases(rank, world, backend, device, seed, tmp, refs)
     except BaseException:
         import traceback
         print(f"phase 16 rank {rank} of {backend}-{world} failed:\n"
               f"{traceback.format_exc()}", file=sys.stderr, flush=True)
         raise
+    finally:
+        release_references(refs)
 
 
-def tm_phases(rank, world, backend, device, seed, tmp):
+def release_references(refs: dict) -> None:
+    """The rank's side of the parent's reference leaves (CUDA tensors it
+    mapped through IPC): drop them before the rank ends. A spawned process
+    ends in ``os._exit``, which never tells the parent that they were
+    released, and the parent could then never free them."""
+    refs.clear()
+
+
+def tm_phases(rank, world, backend, device, seed, tmp, refs):
     import dataclasses
     import torch
     from repro_torch.configs import get_config
@@ -4099,31 +4139,34 @@ def tm_phases(rank, world, backend, device, seed, tmp):
         if backend == "gloo" else qwen
     depth = "whole" if cut is qwen else f"{cut.n_layers} layers"
     out = {"rank": rank, "depth": depth,
-           "a": tm_train(rank, device, seed, Path(tmp), cut)}
+           "a": tm_train(rank, device, seed, Path(tmp), cut,
+                         timed=TM_TIMED[backend])}
     dev_shape = out["a"]["shape"]
     empty_cache(torch.device(out["a"]["device"]))
     t_a = time.perf_counter() - t0
-    f32 = dataclasses.replace(qwen, dtype="float32", param_dtype="float32")
     b, s = TRAIN_CHECK_MESH
-    out["b"] = tm_check(rank, device, seed, f"(b) {TRAIN_ARCH} whole, "
-                        f"{b} x {s}", f32, dev_shape, b, s)
+    out["b"] = tf_check(rank, device, seed, f32_config(qwen), dev_shape, b,
+                        s, refs["b"])
     t_b = time.perf_counter() - t0 - t_a
     b, s = TRAIN_FAMILY_CHECK
-    dbrx = get_config("dbrx-132b")
-    out["c"] = [tm_check(
-        rank, device, seed, f"(c) dbrx-132b reduced, EP, {world} experts, "
-        f"{b} x {s}", dataclasses.replace(dbrx.reduced(
-            n_experts=world, top_k=min(2, world)), moe_a2a=True),
-        (1, world), b, s)]
-    if world == 4:
-        out["c"].append(tm_check(
-            rank, device, seed, f"(c) dbrx-132b reduced, experts over "
-            f"model, capacity factor {TM_DROP_CF}, {b} x {s}",
-            dbrx.reduced(capacity_factor=TM_DROP_CF), (2, 2), b, s))
+    out["c"] = [tf_check(rank, device, seed, cfg, shape, b, s, ref)
+                for (cfg, shape), ref in zip(
+                    tm_family_checks(world).values(), refs["c"])]
     out["launches"] = {"row_table_gather": gk.launches,
                        "row_table_rmw": sk.launches}
     out["seconds"] = (t_a, t_b, time.perf_counter() - t0 - t_a - t_b)
     return out
+
+
+def free_references(refs: dict, dev) -> None:
+    """Drop the one-device steps' leaves the ranks read through CUDA IPC
+    (the ranks have released them and exited) and return them to the
+    card."""
+    import torch
+    refs.clear()
+    if dev.type == "cuda":
+        torch.cuda.ipc_collect()
+    empty_cache(dev)
 
 
 def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
@@ -4135,38 +4178,75 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
     resume on the same mesh bit for bit, ``elastic_restore`` onto the
     other shape (every leaf its slice of the saved leaf, one finite
     step), each rank's bytes its shards'; (b) one f32 step of it at
-    TRAIN_CHECK_MESH against the one-device float64 step; (c) dbrx
-    reduced, EP over (1, world) and, at world 4, experts over ``model``
-    on (2, 2) with a capacity that drops tokens, likewise; (d) the warm
-    bf16 step of (a) (slowest rank, median of TM_TIMED) beside phase 12's,
-    tokens/s, peak per rank, collectives, bytes and their share of one
-    step; (e) B1/B2 launches 0 on every rank. Returns each kernel's
-    launches per group, one count per rank."""
+    TRAIN_CHECK_MESH against the one-device float64 step, both from
+    AdamW's state at TRAIN_CHECK_STEP (lr > 0), computed here before each
+    group spawns and read by each rank for its own blocks (``tf_check``);
+    (c) dbrx reduced, EP over (1, world) and, at world 4, experts over
+    ``model`` on (2, 2) with a capacity that drops tokens, likewise; (d)
+    the warm bf16 step of (a) (slowest rank, median of TM_TIMED) beside
+    phase 12's, tokens/s, peak per rank, collectives, bytes and their
+    share of one step; (e) B1/B2 launches 0 on every rank. Returns each
+    kernel's launches per group, one count per rank."""
     import statistics
     import tempfile
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.distributed.spawn import run_ranks
     empty_cache(dev)
     build = ROOT / "build"
     build.mkdir(exist_ok=True)
     out = {"row_table_gather": {}, "row_table_rmw": {}}
     log(f"reduced phase 16 gloo groups, (a) and (d): {TRAIN_ARCH} "
-        f"n_layers 28 -> {TM_GLOO_LAYERS} (widths kept; (b) whole)")
+        f"n_layers 28 -> {TM_GLOO_LAYERS}, (d) {TM_TIMED['gloo']} timed "
+        "step (widths kept; (b) whole)")
     beside = (f"phase 12: {TRAIN_RESULTS['ms']:.3f} ms, peak "
               f"{TRAIN_RESULTS['peak_gib']:.2f} GiB" if TRAIN_RESULTS
               else "phase 12 not run")
-    for backend, world, device in groups:
-        world = torch.cuda.device_count() if world is None else world
-        name = f"{backend}-{world}"
+    b, s = TRAIN_CHECK_MESH
+    fb, fs = TRAIN_FAMILY_CHECK
+
+    def spawn(backend, world, device, refs):
         t0 = time.perf_counter()
         with tempfile.TemporaryDirectory(dir=build) as tmp:
             ranks = run_ranks(tm_rank, world,
-                              args=(backend, device, seed, tmp),
+                              args=(backend, device, seed, tmp, refs),
                               backend=backend,
                               init_method=f"file://{tmp}/store",
                               timeout=PM_COLLECTIVE_S,
                               join_timeout=TM_JOIN_S)
-        wall = time.perf_counter() - t0
+        return ranks, time.perf_counter() - t0
+    results = []
+    for batch in group_batches(groups):
+        # the batch's one-device float64 steps, all before its ranks
+        # spawn: (b) once, read by every group of the batch; (c) per world
+        batch = [(backend, torch.cuda.device_count() if world is None
+                  else world, device) for backend, world, device in batch]
+        ref_b = tf_reference(dev, seed, f32_config(get_config(TRAIN_ARCH)),
+                             b, s)
+        jobs = []
+        for backend, world, device in batch:
+            checks = tm_family_checks(world)
+            ref = {"b": ref_b, "c": [tf_reference(dev, seed, cfg, fb, fs)
+                                     for cfg, _ in checks.values()]}
+            refs = {"b": ref_b["leaves"],
+                    "c": [r.pop("leaves") for r in ref["c"]]}
+            log(f"phase 16 {backend}-{world}: the one-device float64 steps, "
+                f"(b) {TRAIN_ARCH} whole, {b} x {s}, {ref_b['s']:.1f} s "
+                f"(once for {' and '.join(f'{g[0]}-{g[1]}' for g in batch)})"
+                f", card peak {ref_b['peak_gib']:.2f} GiB; (c) "
+                f"{sum(r['s'] for r in ref['c']):.1f} s")
+            jobs.append(((backend, world, device), checks, ref, refs))
+        del ref_b["leaves"]
+        try:
+            spawned = run_side_by_side(
+                [lambda j=j: spawn(*j[0], j[3]) for j in jobs])
+        finally:
+            for j in jobs:
+                free_references(j[3], dev)
+        results += [(j[0], j[1], j[2], ranks, wall)
+                    for j, (ranks, wall) in zip(jobs, spawned)]
+    for (backend, world, device), checks, ref, ranks, wall in results:
+        name = f"{backend}-{world}"
         for k in out:
             out[k][name] = [r["launches"][k] for r in ranks]
             if any(out[k][name]):
@@ -4176,7 +4256,8 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
         if len({tuple(x["losses"]) for x in a}) != 1:
             raise AssertionError(f"phase 16 {name}: the ranks' losses "
                                  f"differ: {[x['losses'] for x in a]}")
-        slowest = [max(x["ms"][i] for x in a) for i in range(TM_TIMED)]
+        slowest = [max(x["ms"][i] for x in a)
+                   for i in range(TM_TIMED[backend])]
         ms = statistics.median(slowest)
         TM_RESULTS[name] = {"ms": ms, "depth": ranks[0]["depth"]}
         coll = a[0]["coll"]
@@ -4192,7 +4273,7 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
                "at world 1)")
             + f"; params + moments held per rank "
             f"{[round(x['held'] / 2 ** 30, 3) for x in a]} GiB (their "
-            "shards' bytes)")
+            f"shards' bytes); {tm_seconds(a)}")
         log(f"phase 16 {name} (d) bf16 step, {ranks[0]['depth']}, 8 x 512: "
             f"{ms:.3f} ms (slowest "
             f"rank, median of {' '.join(f'{t:.3f}' for t in slowest)}), "
@@ -4204,16 +4285,17 @@ def phase_train_mesh(dev, seed: int, groups=PM_GROUPS):
             f"handed to them, {coll['s'] * 1e3:.3f} ms in them "
             f"({100 * coll['s'] * 1e3 / coll['step_ms']:.1f}% of that "
             f"step); devices {sorted({x['device'] for x in a})}")
-        log(f"phase 16 {name} (b) peak per rank over the f32 check "
-            f"(rank 0 also runs the one-device float64 step): device "
-            f"{[round(r['b']['peak_gib'], 2) for r in ranks]} GiB, host "
-            f"resident (the largest of its samples after each stage) "
-            f"{[round(r['b']['host_gib'], 2) for r in ranks]} GiB")
+        tf_judge(name, f"(b) {TRAIN_ARCH} whole, {b} x {s} on "
+                 f"{a[0]['shape']}", ref["b"], [r["b"] for r in ranks],
+                 phase=16)
+        for i, (what, (_, shape)) in enumerate(checks.items()):
+            tf_judge(name, f"{what} on {shape}", ref["c"][i],
+                     [r["c"][i] for r in ranks], phase=16)
         log(f"phase 16 {name}: B1/B2 launches per rank "
             f"{[tuple(r['launches'].values()) for r in ranks]} (the train "
             f"path calls no kernel); seconds per rank (a+d, b, c) "
             f"{[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}; "
-            f"{wall:.1f} s")
+            f"{wall:.1f} s{side_note(backend)}")
     return out
 
 
@@ -4227,9 +4309,9 @@ TF_VLM_WIDE = (2, 256, (1, 4, 4))  # (c) published widths, 1 of 80 layers
 # ranks would need ~80 GiB (PERF.md)
 TF_VLM_WIDE_MESHES = ((1, 1), (1, 2))
 # the phase's 180 s budget cuts the gloo groups first in (d)'s timed
-# steps, then in (a)/(d)'s depth (PERF.md): (b) stays whole
-TF_TIMED = {"nccl": TM_TIMED, "gloo": 1}   # (d): warm timed bf16 steps
+# steps (TM_TIMED), then in (a)/(d)'s depth (PERF.md): (b) stays whole
 TF_GLOO_LAYERS = 1                 # the gloo groups' (a)/(d) depth: 1 + 1
+TF_RESULTS: dict = {}              # (d) per group, printed beside phase 18's
 
 
 def vlm_positions3(batch: int, s_img: int, s_txt: int, grid: tuple):
@@ -4264,11 +4346,30 @@ def tf_key(path) -> str:
     return ".".join(map(str, path))
 
 
+def check_state(params):
+    """AdamW's state of the one-step checks, the same on both sides: f32
+    moments at zero and ``step`` TRAIN_CHECK_STEP, past the warmup (lr >
+    0)."""
+    from repro_torch.optim import adamw_init
+    opt = adamw_init(params, state_dtype="float32")
+    opt["step"].fill_(TRAIN_CHECK_STEP)
+    return opt
+
+
+def to_float64(t, dev=None):
+    """A floating tensor widened to float64 (on ``dev``), others as they
+    are."""
+    import torch
+    dev = t.device if dev is None else dev
+    return t.to(dev, torch.float64) if t.is_floating_point() else t.to(dev)
+
+
 def tf_reference(dev, seed: int, cfg, b: int, s: int, grid=None) -> dict:
-    """The one-device step of (b)/(c), once, in this process before the
-    groups spawn, so that no rank holds a float64 model: ``cfg``'s f32
-    params from ``seed`` widened to float64, one step of
-    ``make_train_step``. AdamW's math is f32 in every dtype, so its
+    """The one-device step of a one-step check (phases 16-18), once, in
+    this process before the group spawns, so that no rank holds its
+    float64 model: ``cfg``'s f32 params from ``seed`` widened to float64,
+    one step of ``make_train_step`` from ``check_state`` (the EP path off;
+    a MoE model on the CPU). AdamW's math is f32 in every dtype, so its
     moments are f32 and the new params f32 values: each updated leaf is
     kept on ``dev`` in f32 (exact), and the spawn hands it to the ranks
     through CUDA IPC (``torch.multiprocessing`` pickles a CUDA tensor by
@@ -4278,57 +4379,64 @@ def tf_reference(dev, seed: int, cfg, b: int, s: int, grid=None) -> dict:
     import torch
     from repro_torch.core.tree import tree_leaves_with_path, tree_map
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw_init
     from repro_torch.train.trainer import make_train_step
     t0 = time.perf_counter()
     empty_cache(dev)
     reset_peak(dev)
-    wide = dataclasses.replace(cfg, dtype="float64", param_dtype="float64")
-    to64 = lambda t: t.to(torch.float64) if t.is_floating_point() else t
-    p64 = tree_map(to64, build_model(cfg, device=dev).init(
-        torch.Generator(device=dev).manual_seed(seed)))
-    batch = {k: to64(v) for k, v in tf_batch(cfg, b, s, seed, dev,
-                                             grid).items()}
-    p64, o, m = make_train_step(build_model(wide, device=dev))(
-        p64, adamw_init(p64, state_dtype="float32"), batch)
-    leaves = {tf_key(path): t.float() for path, t in tree_leaves_with_path(
-        {"p": p64, "o": {"mu": o["mu"], "nu": o["nu"]}})}
+    wide = dataclasses.replace(cfg, dtype="float64", param_dtype="float64",
+                               moe_a2a=False)
+    ref_dev = dev if cfg.n_experts == 0 else torch.device("cpu")
+    p64 = tree_map(lambda t: to_float64(t, ref_dev), build_model(
+        cfg, device=dev).init(torch.Generator(device=dev).manual_seed(seed)))
+    batch = {k: to_float64(v, ref_dev)
+             for k, v in tf_batch(cfg, b, s, seed, dev, grid).items()}
+    p64, o, m = make_train_step(build_model(wide, device=ref_dev))(
+        p64, check_state(p64), batch)
+    leaves = {tf_key(path): t.to(dev, torch.float32)
+              for path, t in tree_leaves_with_path(
+                  {"p": p64, "o": {"mu": o["mu"], "nu": o["nu"]}})}
     peak = peak_gib(dev)
     del p64, o, batch
     empty_cache(dev)
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "s": time.perf_counter() - t0, "peak_gib": peak,
-            "leaves": leaves}
+            "lr": float(m["lr"]), "s": time.perf_counter() - t0,
+            "peak_gib": peak, "leaves": leaves}
 
 
 def tf_check(rank, device, seed, cfg, shape, b, s, ref: dict,
-             grid=None) -> dict:
-    """(b), (c): one f32 step of ``cfg`` on a process mesh of ``shape``,
-    each updated leaf of the rank (params and AdamW's moments, which carry
-    the clipped gradient) held against its block of the one-device step's
-    (``tf_reference``'s ``leaves``, ``ref``): the squared error and the
-    squared reference, each divided by the number of ranks that hold the
-    same block, so that the sums over the ranks are the whole leaf's.
-    Returns them with the metrics and the rank's device peak and largest
-    resident host memory."""
+             grid=None, wide: bool = False) -> dict:
+    """(b), (c): one step of ``cfg`` (f32; in float64 with ``wide``, the
+    f32 params widened) on a process mesh of ``shape`` from
+    ``check_state``, each updated leaf of the rank (params and AdamW's
+    moments, which carry the clipped gradient) held against its block of
+    the one-device step's (``tf_reference``'s ``leaves``, ``ref``): the
+    squared error and the squared reference, each divided by the number
+    of ranks that hold the same block, so that the sums over the ranks
+    are the whole leaf's. Returns them with the metrics and the rank's
+    device peak and largest resident host memory."""
+    import dataclasses
     import torch
-    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.core.tree import tree_leaves_with_path, tree_map
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import build_model
-    from repro_torch.optim import adamw_init
     from repro_torch.train.trainer import shard_train_step
     mesh = meshlib.make_process_mesh(shape, ("data", "model"), device=device)
     dev = mesh.device
     empty_cache(dev)
     reset_peak(dev)
-    model = build_model(cfg, device=dev)
-    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    params = build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
     batch = tf_batch(cfg, b, s, seed, dev, grid)
-    step = shard_train_step(model, mesh, params, None, batch)
+    if wide:
+        params = tree_map(to_float64, params)
+        batch = {k: to_float64(v) for k, v in batch.items()}
+        cfg = dataclasses.replace(cfg, dtype="float64",
+                                  param_dtype="float64")
+    step = shard_train_step(build_model(cfg, device=dev), mesh, params, None,
+                            batch)
     ps, ospecs, bs = step.in_specs
     p = meshlib.shard_tree(params, ps, mesh)
-    o = adamw_init(meshlib.shard_tree(params, ospecs["mu"], mesh),
-                   state_dtype="float32")
+    o = check_state(meshlib.shard_tree(params, ospecs["mu"], mesh))
     bb = meshlib.batch_block(batch, bs, mesh)
     del params, batch
     host = host_rss_gib()
@@ -4352,17 +4460,17 @@ def tf_check(rank, device, seed, cfg, shape, b, s, ref: dict,
         del w
     host = max(host, host_rss_gib())
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-            "step": int(o["step"]), "sums": sums, "peak_gib": peak_gib(dev),
-            "host_gib": host}
+            "lr": float(m["lr"]), "step": int(o["step"]), "sums": sums,
+            "peak_gib": peak_gib(dev), "host_gib": host}
 
 
-def tf_wide(device, seed, shape) -> dict:
-    """(c) at published widths on one rank: one bf16 step of Qwen2-VL-72B
-    at 1 of its 80 layers on the group's mesh of ``shape``
-    (``Trainer``), ``positions3`` given; returns its loss, wall time and
-    the rank's device peak."""
-    import dataclasses
-    from repro_torch.configs import get_config
+def tf_wide(device, seed, shape, cfg, b: int, s: int, grid=None,
+            steps: int = 1) -> dict:
+    """A published-width step on one rank (phase 17's Qwen2-VL-72B at 1
+    of its 80 layers, ``positions3`` given; phase 18's Jamba at one
+    superblock): ``steps`` bf16 steps of ``cfg`` at b x s on the group's
+    mesh of ``shape`` (``Trainer``); returns the last loss, each step's
+    wall time and the rank's device peak."""
     from repro_torch.launch import mesh as meshlib
     from repro_torch.models import build_model
     from repro_torch.train.trainer import Trainer
@@ -4370,20 +4478,21 @@ def tf_wide(device, seed, shape) -> dict:
     dev = mesh.device
     empty_cache(dev)
     reset_peak(dev)
-    cfg = dataclasses.replace(get_config(TF_VLM), n_layers=1)
-    b, s, grid = TF_VLM_WIDE
     trainer = Trainer(model=build_model(cfg, device=dev), mesh=mesh,
-                      warmup=1, total_steps=2)
+                      warmup=1, total_steps=steps + 1)
     params, opt = trainer.init_state(seed)
     batch = tf_batch(cfg, b, s, seed, dev, grid)
     step = trainer.jitted_step(batch)
     bb = meshlib.batch_block(batch, step.in_specs[2], mesh)
-    sync()
-    t0 = time.perf_counter()
-    params, opt, m = step(params, opt, bb)
-    sync()
-    out = {"loss": float(m["loss"]), "ms": (time.perf_counter() - t0) * 1e3,
-           "peak_gib": peak_gib(dev), "shape": shape}
+    times = []
+    for _ in range(steps):
+        sync()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, bb)
+        sync()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"loss": float(m["loss"]), "ms": times, "peak_gib": peak_gib(dev),
+           "shape": shape}
     del params, opt, m
     empty_cache(dev)
     return out
@@ -4417,14 +4526,13 @@ def tf_phases(rank, world, backend, device, seed, tmp, refs):
     out = {"rank": rank,
            "depth": f"{cut.n_enc_layers} + {cut.n_dec_layers} layers",
            "a": tm_train(rank, device, seed, Path(tmp), cut,
-                         timed=TF_TIMED[backend], elastic=False)}
+                         timed=TM_TIMED[backend], elastic=False)}
     shape = out["a"]["shape"]
     empty_cache(torch.device(out["a"]["device"]))
     t_a = time.perf_counter() - t0
     b, s = TRAIN_CHECK_MESH
-    out["b"] = tf_check(rank, device, seed, dataclasses.replace(
-        seamless, dtype="float32", param_dtype="float32"), shape, b, s,
-        refs["b"])
+    out["b"] = tf_check(rank, device, seed, f32_config(seamless), shape, b,
+                        s, refs["b"])
     t_b = time.perf_counter() - t0 - t_a
     b, s, grid = TF_VLM_CHECK
     out["c"] = tf_check(rank, device, seed, get_config(TF_VLM).reduced(),
@@ -4435,7 +4543,9 @@ def tf_phases(rank, world, backend, device, seed, tmp, refs):
     t_c = time.perf_counter()
     out["wide_free_gib"] = card_free_gib(dev)
     if shape in TF_VLM_WIDE_MESHES:
-        out["c_wide"] = tf_wide(device, seed, shape)
+        b, s, grid = TF_VLM_WIDE
+        out["c_wide"] = tf_wide(device, seed, shape, dataclasses.replace(
+            get_config(TF_VLM), n_layers=1), b, s, grid)
     out["wide_s"] = time.perf_counter() - t_c
     out["launches"] = {"row_table_gather": gk.launches,
                        "row_table_rmw": sk.launches}
@@ -4454,7 +4564,7 @@ def tf_hand_back(rank, refs: dict, tmp: Path) -> None:
     could not free them), rank 0 says so once all have, and every rank
     waits for the parent to have freed them (``tf_free_on_hand_back``)."""
     import torch.distributed as dist
-    refs.clear()
+    release_references(refs)
     dist.barrier()
     if rank == 0:
         (tmp / "released").touch()
@@ -4483,14 +4593,20 @@ def tf_free_on_hand_back(refs: dict, tmp: Path, dev, done) -> None:
     (tmp / "freed").touch()
 
 
-def tf_judge(name, what, ref: dict, ranks: list) -> None:
-    """(b)/(c) of one group: the metrics equal on every rank and within
-    TRAIN_*_RTOL of the one-device step's, every updated leaf within
-    TRAIN_GRAD_REL_L2 (relative L2 over the ranks' summed blocks)."""
+def tf_judge(name, what, ref: dict, ranks: list, *, phase: int = 17,
+             bounds=(TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, TRAIN_GRAD_REL_L2),
+             precision: str = "f32") -> None:
+    """A one-step check of one group (phases 16-18): the metrics equal on
+    every rank, the loss and the global norm within ``bounds[:2]``
+    (relative) of the one-device float64 step's, the same lr, every
+    updated leaf within ``bounds[2]`` (relative L2 over the ranks' summed
+    blocks), the optimizer one step past TRAIN_CHECK_STEP."""
     import math
+    loss_rtol, norm_rtol, leaf_rel_l2 = bounds
     if len({(r["loss"], r["grad_norm"], r["step"]) for r in ranks}) != 1:
-        raise AssertionError(f"phase 17 {name} {what}: the ranks' metrics "
-                             f"differ: {[(r['loss'], r['grad_norm']) for r in ranks]}")
+        raise AssertionError(f"phase {phase} {name} {what}: the ranks' "
+                             f"metrics differ: "
+                             f"{[(r['loss'], r['grad_norm']) for r in ranks]}")
     loss_err = abs(ranks[0]["loss"] - ref["loss"]) / abs(ref["loss"])
     norm_err = abs(ranks[0]["grad_norm"] - ref["grad_norm"]) \
         / abs(ref["grad_norm"])
@@ -4501,20 +4617,27 @@ def tf_judge(name, what, ref: dict, ranks: list) -> None:
         err = math.sqrt(d2 / max(w2, 1e-300))
         if err > worst[1] or not err == err:
             worst = (key, err)
-    log(f"phase 17 {name} {what}: f32 mesh step against the one-device "
-        f"float64 step: loss {ranks[0]['loss']:.6f} (rel err "
+    log(f"phase {phase} {name} {what}: {precision} mesh step from step "
+        f"{TRAIN_CHECK_STEP} (lr {ranks[0]['lr']:.4e}) against the "
+        f"one-device float64 step: loss {ranks[0]['loss']:.6f} (rel err "
         f"{loss_err:.3e}), global norm {ranks[0]['grad_norm']:.6f} (rel "
         f"err {norm_err:.3e}), worst updated leaf rel L2 {worst[1]:.3e} "
-        f"({worst[0]}, {len(ranks[0]['sums'])} leaves); peak per rank: "
-        f"device {[round(r['peak_gib'], 2) for r in ranks]} GiB, host "
-        f"resident {[round(r['host_gib'], 2) for r in ranks]} GiB")
-    if not (loss_err <= TRAIN_LOSS_RTOL and norm_err <= TRAIN_NORM_RTOL
-            and worst[1] <= TRAIN_GRAD_REL_L2 and ranks[0]["step"] == 1):
+        f"({worst[0]}, {len(ranks[0]['sums'])} leaves, params and both "
+        f"moments; bounds {loss_rtol}, {norm_rtol}, {leaf_rel_l2}); peak "
+        f"per rank: device {[round(r['peak_gib'], 2) for r in ranks]} GiB, "
+        f"host resident {[round(r['host_gib'], 2) for r in ranks]} GiB")
+    if not (loss_err <= loss_rtol and norm_err <= norm_rtol
+            and worst[1] <= leaf_rel_l2 and ref["lr"] > 0
+            # a MoE model's reference runs on the CPU, whose cosine may
+            # round the schedule's last bit otherwise
+            and abs(ranks[0]["lr"] / ref["lr"] - 1) <= 1e-6
+            and ranks[0]["step"] == TRAIN_CHECK_STEP + 1):
         raise AssertionError(
-            f"phase 17 {name} {what}: the mesh step is off the one-device "
-            f"step (loss {loss_err:.3e}, norm {norm_err:.3e}, leaf "
-            f"{worst[1]:.3e} at {worst[0]}; bounds {TRAIN_LOSS_RTOL}, "
-            f"{TRAIN_NORM_RTOL}, {TRAIN_GRAD_REL_L2})")
+            f"phase {phase} {name} {what}: the mesh step is off the "
+            f"one-device step (loss {loss_err:.3e}, norm {norm_err:.3e}, "
+            f"leaf {worst[1]:.3e} at {worst[0]}, lr {ranks[0]['lr']} "
+            f"against {ref['lr']}, step {ranks[0]['step']}; bounds "
+            f"{bounds})")
 
 
 def phase_train_families(dev, seed: int, groups=PM_GROUPS):
@@ -4549,7 +4672,7 @@ def phase_train_families(dev, seed: int, groups=PM_GROUPS):
     vb, vs, grid = TF_VLM_CHECK
     wb, ws, _ = TF_VLM_WIDE
     log(f"reduced phase 17 gloo groups, (a) and (d): {TF_ARCH} 12 + 12 -> "
-        f"{TF_GLOO_LAYERS} + {TF_GLOO_LAYERS} layers, (d) {TF_TIMED['gloo']} "
+        f"{TF_GLOO_LAYERS} + {TF_GLOO_LAYERS} layers, (d) {TM_TIMED['gloo']} "
         f"timed step (widths kept; (b) whole); this process holds "
         f"{torch.cuda.memory_allocated(dev) / 2 ** 30 if dev.type == 'cuda' else 0.0:.2f}"
         f" GiB of the card, {card_free_gib(dev):.2f} GiB free")
@@ -4596,8 +4719,9 @@ def phase_train_families(dev, seed: int, groups=PM_GROUPS):
             raise AssertionError(f"phase 17 {name}: the ranks' losses "
                                  f"differ: {[x['losses'] for x in a]}")
         slowest = [max(x["ms"][i] for x in a)
-                   for i in range(TF_TIMED[backend])]
+                   for i in range(TM_TIMED[backend])]
         ms = statistics.median(slowest)
+        TF_RESULTS[name] = {"ms": ms, "depth": ranks[0]["depth"]}
         coll = a[0]["coll"]
         p16 = TM_RESULTS.get(name)
         beside = (f"phase 16 Qwen3-0.6B ({p16['depth']}): {p16['ms']:.3f} "
@@ -4610,7 +4734,7 @@ def phase_train_families(dev, seed: int, groups=PM_GROUPS):
             f"mesh bit for bit ({a[0]['leaves']} leaves a rank, load "
             f"{max(x['load_s'] for x in a):.1f} s); params + moments held "
             f"per rank {[round(x['held'] / 2 ** 30, 3) for x in a]} GiB "
-            "(their shards' bytes)")
+            f"(their shards' bytes); {tm_seconds(a)}")
         log(f"phase 17 {name} (d) bf16 step, {ranks[0]['depth']}, 8 x 512: "
             f"{ms:.3f} ms (slowest rank, median of "
             f"{' '.join(f'{t:.3f}' for t in slowest)}), "
@@ -4638,7 +4762,7 @@ def phase_train_families(dev, seed: int, groups=PM_GROUPS):
                 f"layers, bf16, {wb} x {ws} on {a[0]['shape']}, after the "
                 f"leaves were handed back: loss {wide[0]['loss']:.4f} on "
                 f"every rank, first step "
-                f"{max(x['ms'] for x in wide):.1f} ms (slowest rank), peak "
+                f"{max(x['ms'][0] for x in wide):.1f} ms (slowest rank), peak "
                 f"per rank {[round(x['peak_gib'], 2) for x in wide]} GiB, "
                 f"{ranks[0]['wide_free_gib']:.2f} GiB of the card free "
                 "before it")
@@ -4652,6 +4776,307 @@ def phase_train_families(dev, seed: int, groups=PM_GROUPS):
             f"c published) "
             f"{[tuple(round(t, 1) for t in r['seconds']) + (round(r['wide_s'], 1),) for r in ranks]}"
             f"; {wall:.1f} s")
+    return out
+
+
+# --- phase 18 --------------------------------------------------------------
+
+TR_ARCH = "rwkv6-1.6b"             # whole: 24 layers, published widths
+TR_JAMBA = "jamba-1.5-large-398b"
+# (a)/(d): 8 x TR_SEQ tokens, the sequence cut from phases 16-17's 512:
+# the eager WKV loop takes ~TR_WKV_MS per layer and time step (phase 10)
+TR_SEQ = 32
+TR_WKV_MS = 0.155
+TR_STEP_X = 12                     # a step's time over a forward's (PERF.md)
+TR_CHECK = (2, 64)                 # (b), (c1): batch x seq of the one step
+# (b) runs in float64 on the mesh: RWKV-6 at random weights amplifies f32
+# rounding ~1e4-fold, so its one-device f32 step is off the float64 one
+# by more than 2e-5 (measured and printed each run); TR_B_LAYERS of the 24
+# layers is the depth whose float64 step gloo-4's four ranks hold on one
+# card beside the reference's leaves (PERF.md)
+TR_B_LAYERS = 8
+# loss and global norm, float64 throughout, within 1e-9 relative; every
+# updated leaf within one f32 ulp (2^-23) of relative L2: AdamW's math is
+# f32 whatever the params' dtype, so the moments and the new params are
+# f32 roundings of float64 gradients that agree to ~1e-11, a few of whose
+# elements round to the neighbouring f32 value (PERF.md)
+TR_B_BOUNDS = (1e-9, 1e-9, 2.0 ** -23)
+TR_C1_BOUNDS = (TRAIN_LOSS_RTOL, TRAIN_NORM_RTOL, 2e-5)
+TR_WIDE = (2, 256)                 # (c2): batch x seq at published widths
+# meshes whose reckoned (c2) peaks leave the card 10 GiB (PERF.md)
+TR_WIDE_MESHES = ((1, 1), (1, 2))
+TR_GLOO_LAYERS = 1                 # the gloo groups' (a)/(d) depth (of 24)
+TR_TIMED = 1                       # (d): warm timed bf16 steps, every group
+
+
+def tr_b_config():
+    """(b): RWKV-6 at published widths and TR_B_LAYERS layers, f32 (the
+    check widens it to float64)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(f32_config(get_config(TR_ARCH)),
+                               n_layers=TR_B_LAYERS)
+
+
+def tr_c1_config():
+    """(c1): Jamba reduced, f32: one superblock of attention period 8 (an
+    attention layer and 7 Mamba layers), MoE over 4 experts every second
+    layer."""
+    from repro_torch.configs import get_config
+    return get_config(TR_JAMBA).reduced()
+
+
+def tr_wide_config():
+    """(c2): Jamba 1.5 Large at published widths, bf16, cut to one
+    superblock of attention period 2 (an attention layer and a Mamba
+    layer) whose FFNs are both dense (MoE period 4)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TR_JAMBA), n_layers=2,
+                               attn_period=2, moe_period=4)
+
+
+def tr_f32_measure(dev, seed: int) -> None:
+    """RWKV-6 whole: the one-device f32 step at TR_CHECK against the
+    float64 step, both from ``check_state``, printed as measured (it is
+    why (b) runs in float64)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import tree_leaves_with_path
+    from repro_torch.models import build_model
+    from repro_torch.train.trainer import make_train_step
+    cfg = f32_config(get_config(TR_ARCH))
+    b, s = TR_CHECK
+    ref = tf_reference(dev, seed, cfg, b, s)
+    model = build_model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    p, o, m = make_train_step(model)(params, check_state(params),
+                                     tf_batch(cfg, b, s, seed, dev))
+    del params
+    worst = ("", 0.0)
+    for path, t in tree_leaves_with_path(
+            {"p": p, "o": {"mu": o["mu"], "nu": o["nu"]}}):
+        w = ref["leaves"][tf_key(path)].double()
+        err = float((t.double() - w).norm() / w.norm().clamp(min=1e-300))
+        if err > worst[1] or not err == err:
+            worst = (tf_key(path), err)
+    peak = peak_gib(dev)
+    loss_err = abs(float(m["loss"]) - ref["loss"]) / abs(ref["loss"])
+    norm_err = abs(float(m["grad_norm"]) - ref["grad_norm"]) \
+        / abs(ref["grad_norm"])
+    del p, o, m, ref
+    empty_cache(dev)
+    log(f"phase 18 {TR_ARCH} whole, {b} x {s}, one device: the f32 step "
+        f"against the float64 step from step {TRAIN_CHECK_STEP}: loss rel "
+        f"err {loss_err:.3e}, global norm rel err {norm_err:.3e}, worst "
+        f"updated leaf rel L2 {worst[1]:.3e} ({worst[0]}) against 2e-5 "
+        f"(measured, not bounded: (b) runs in float64); card peak "
+        f"{peak:.2f} GiB")
+
+
+def tr_rank(rank, world, backend, device, seed, tmp, refs):
+    """One rank of phase 18 (spawned): (a) + (d), (b), (c1), (c2); the
+    kernels' launch counters from 0 over the phase's work on this rank. A
+    failure is printed with the rank's traceback before it propagates;
+    the rank drops the parent's reference leaves before it ends."""
+    try:
+        return tr_phases(rank, world, backend, device, seed, tmp, refs)
+    except BaseException:
+        import traceback
+        print(f"phase 18 rank {rank} of {backend}-{world} failed:\n"
+              f"{traceback.format_exc()}", file=sys.stderr, flush=True)
+        raise
+    finally:
+        release_references(refs)
+
+
+def tr_phases(rank, world, backend, device, seed, tmp, refs):
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.gather import gather as gk
+    from repro_torch.kernels.scatter_rmw import scatter_rmw as sk
+    gk.launches = sk.launches = 0
+    t0 = time.perf_counter()
+    rwkv = get_config(TR_ARCH)
+    cut = dataclasses.replace(rwkv, n_layers=TR_GLOO_LAYERS) \
+        if backend == "gloo" else rwkv
+    out = {"rank": rank, "depth": f"{cut.n_layers} layers",
+           "a": tm_train(rank, device, seed, Path(tmp), cut,
+                         timed=TR_TIMED, elastic=False, seq=TR_SEQ)}
+    shape = out["a"]["shape"]
+    dev = torch.device(out["a"]["device"])
+    empty_cache(dev)
+    marks = [time.perf_counter()]
+    b, s = TR_CHECK
+    out["b"] = tf_check(rank, device, seed, tr_b_config(), shape, b, s,
+                        refs["b"], wide=True)
+    marks.append(time.perf_counter())
+    out["c1"] = tf_check(rank, device, seed, tr_c1_config(), shape, b, s,
+                         refs["c1"])
+    empty_cache(dev)
+    marks.append(time.perf_counter())
+    out["c2_free_gib"] = card_free_gib(dev)
+    if shape in TR_WIDE_MESHES:
+        wb, ws = TR_WIDE
+        out["c2"] = tf_wide(device, seed, shape, tr_wide_config(), wb, ws,
+                            steps=2 if shape == (1, 1) else 1)
+    marks.append(time.perf_counter())
+    out["launches"] = {"row_table_gather": gk.launches,
+                       "row_table_rmw": sk.launches}
+    out["seconds"] = tuple(y - x for x, y in zip([t0] + marks, marks))
+    return out
+
+
+def phase_train_recurrent(dev, seed: int, groups=PM_GROUPS):
+    """The train step over a process mesh for the hybrid and RWKV-6
+    families, one spawned process per rank, in phase 13's groups: the
+    selective scan on the rank's channels and the WKV recurrence on its
+    heads, tensor-parallel over ``model``. (a) RWKV-6-1.6B whole (bf16,
+    AdamW bf16 moments, remat "full") at 8 x TR_SEQ: steps, a checkpoint
+    at step 2 from the mesh, a resume on the same mesh bit for bit, each
+    rank's bytes its shards'; the gloo groups at TR_GLOO_LAYERS layers.
+    (b) one step of RWKV-6 at TR_B_LAYERS layers in float64 on the mesh
+    against the one-device float64 step within TR_B_BOUNDS, from AdamW's
+    state at TRAIN_CHECK_STEP (lr > 0), the reference computed here once
+    before the groups and read by each rank for its own blocks; the
+    one-device f32 step of the whole model against float64 is measured
+    and printed first. (c1) Jamba reduced likewise in f32 within
+    TR_C1_BOUNDS; (c2) one bf16 step of Jamba at published widths and one
+    superblock on TR_WIDE_MESHES. (d) the warm bf16 step of (a) beside
+    phases 16's and 17's, with its collectives, and (c2)'s steps at
+    (1, 1). (e) B1/B2 launches 0 on every rank. Returns each kernel's
+    launches per group, one count per rank."""
+    import statistics
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.spawn import run_ranks
+    empty_cache(dev)
+    build = ROOT / "build"
+    build.mkdir(exist_ok=True)
+    out = {"row_table_gather": {}, "row_table_rmw": {}}
+    rwkv, wide = get_config(TR_ARCH), tr_wide_config()
+    jamba = get_config(TR_JAMBA)
+    fwd_ms = rwkv.n_layers * TR_WKV_MS
+    log(f"reduced phase 18 (a)/(d): {TR_ARCH} at 8 x {TR_SEQ} (phases "
+        f"16-17: 8 x 512): the eager WKV loop takes ~{TR_WKV_MS} ms a layer "
+        f"and time step, a forward ~{fwd_ms * TR_SEQ / 1e3:.2f} s at "
+        f"{TR_SEQ} and ~{fwd_ms * 512 / 1e3:.2f} s at 512, a step (forward, "
+        f"remat's recompute, backward) ~{TR_STEP_X}x that (measured at 8 x "
+        f"128: 5.8 s); gloo groups n_layers "
+        f"{rwkv.n_layers} -> {TR_GLOO_LAYERS} (widths kept); (d) {TR_TIMED} "
+        "timed step in every group")
+    log(f"reduced phase 18 (b): {TR_ARCH} n_layers {rwkv.n_layers} -> "
+        f"{TR_B_LAYERS}, in float64 on the mesh (widths kept)")
+    log(f"reduced phase 18 (c2): {TR_JAMBA} n_layers {jamba.n_layers} -> "
+        f"{wide.n_layers}, attn_period {jamba.attn_period} -> "
+        f"{wide.attn_period} (one attention and one Mamba layer), "
+        f"moe_period {jamba.moe_period} -> {wide.moe_period} (both FFNs "
+        f"dense: one published MoE layer holds {jamba.n_experts} experts of "
+        f"{3 * jamba.d_model * jamba.d_ff / 1e6:.0f} M parameters), widths "
+        f"kept; run on {list(TR_WIDE_MESHES)}")
+    b, s = TR_CHECK
+    t0 = time.perf_counter()
+    tr_f32_measure(dev, seed)
+    ref = {"b": tf_reference(dev, seed, tr_b_config(), b, s),
+           "c1": tf_reference(dev, seed, tr_c1_config(), b, s)}
+    refs = {k: r.pop("leaves") for k, r in ref.items()}
+    gib = sum(t.nbytes for t in refs["b"].values()) / 2 ** 30
+    log(f"phase 18: the one-device float64 steps, (b) {TR_ARCH} at "
+        f"{TR_B_LAYERS} layers, {b} x {s}, {ref['b']['s']:.1f} s, card peak "
+        f"{ref['b']['peak_gib']:.2f} GiB, its updated leaves kept on the "
+        f"card in f32 ({gib:.2f} GiB) for every group; (c1) {TR_JAMBA} "
+        f"reduced, "
+        f"{ref['c1']['s']:.1f} s; {time.perf_counter() - t0:.1f} s with the "
+        f"f32 measure; {card_free_gib(dev):.2f} GiB of the card free")
+    try:
+        for backend, world, device in groups:
+            world = torch.cuda.device_count() if world is None else world
+            name = f"{backend}-{world}"
+            t0 = time.perf_counter()
+            with tempfile.TemporaryDirectory(dir=build) as tmp:
+                ranks = run_ranks(tr_rank, world,
+                                  args=(backend, device, seed, tmp, refs),
+                                  backend=backend,
+                                  init_method=f"file://{tmp}/store",
+                                  timeout=PM_COLLECTIVE_S,
+                                  join_timeout=TM_JOIN_S)
+            wall = time.perf_counter() - t0
+            for k in out:
+                out[k][name] = [r["launches"][k] for r in ranks]
+                if any(out[k][name]):
+                    raise AssertionError(f"phase 18 {name}: the train path "
+                                         f"launched {k} {out[k][name]}")
+            a = [r["a"] for r in ranks]
+            if len({tuple(x["losses"]) for x in a}) != 1:
+                raise AssertionError(f"phase 18 {name}: the ranks' losses "
+                                     f"differ: {[x['losses'] for x in a]}")
+            slowest = [max(x["ms"][i] for x in a) for i in range(TR_TIMED)]
+            ms = statistics.median(slowest)
+            coll = a[0]["coll"]
+            beside = "; ".join(
+                f"phase {ph} {arch} ({res[name]['depth']}, 8 x 512): "
+                f"{res[name]['ms']:.3f} ms" if name in res else
+                f"phase {ph} not run"
+                for ph, arch, res in ((16, "Qwen3-0.6B", TM_RESULTS),
+                                      (17, "SeamlessM4T-large-v2",
+                                       TF_RESULTS)))
+            log(f"phase 18 {name} (a) {TR_ARCH} {ranks[0]['depth']}, mesh "
+                f"{a[0]['shape']}: losses "
+                f"{' '.join(f'{x:.4f}' for x in a[0]['losses'])} on every "
+                f"rank; checkpoint at step 2 from the mesh "
+                f"({max(x['save_s'] for x in a):.1f} s), resumed on the same "
+                f"mesh bit for bit ({a[0]['leaves']} leaves a rank, load "
+                f"{max(x['load_s'] for x in a):.1f} s); params + moments "
+                f"held per rank {[round(x['held'] / 2 ** 30, 3) for x in a]}"
+                f" GiB (their shards' bytes); {tm_seconds(a)}")
+            log(f"phase 18 {name} (d) bf16 step, {ranks[0]['depth']}, 8 x "
+                f"{TR_SEQ}: {ms:.3f} ms (slowest rank, median of "
+                f"{' '.join(f'{t:.3f}' for t in slowest)}), "
+                f"{8 * TR_SEQ / ms * 1e3:.1f} tokens/s; {beside}; peak per "
+                f"rank over those steps "
+                f"{[round(x['peak_gib'], 2) for x in a]} GiB; one counted "
+                f"step {coll['step_ms']:.3f} ms with each collective "
+                f"synchronised: {coll['calls']} per rank, "
+                f"{coll['bytes'] / 2 ** 20:.1f} MiB handed to them, "
+                f"{coll['s'] * 1e3:.3f} ms in them "
+                f"({100 * coll['s'] * 1e3 / coll['step_ms']:.1f}% of that "
+                f"step); devices {sorted({x['device'] for x in a})}")
+            tf_judge(name, f"(b) {TR_ARCH} at {TR_B_LAYERS} layers, {b} x {s} "
+                     f"on {a[0]['shape']}", ref["b"], [r["b"] for r in ranks],
+                     phase=18, bounds=TR_B_BOUNDS, precision="float64")
+            tf_judge(name, f"(c1) {TR_JAMBA} reduced, {b} x {s} on "
+                     f"{a[0]['shape']}", ref["c1"], [r["c1"] for r in ranks],
+                     phase=18, bounds=TR_C1_BOUNDS)
+            if "c2" in ranks[0]:
+                c2 = [r["c2"] for r in ranks]
+                if len({x["loss"] for x in c2}) != 1 or \
+                        not abs(c2[0]["loss"]) < float("inf"):
+                    raise AssertionError(f"phase 18 {name} (c2): losses "
+                                         f"{[x['loss'] for x in c2]}")
+                steps = [max(x["ms"][i] for x in c2)
+                         for i in range(len(c2[0]["ms"]))]
+                log(f"phase 18 {name} (c2) {TR_JAMBA} published widths, "
+                    f"one superblock, bf16, {TR_WIDE[0]} x {TR_WIDE[1]} on "
+                    f"{a[0]['shape']}: loss {c2[0]['loss']:.4f} on every "
+                    f"rank; steps {' '.join(f'{t:.1f}' for t in steps)} ms "
+                    f"(slowest rank; the first cold); peak per rank "
+                    f"{[round(x['peak_gib'], 2) for x in c2]} GiB, "
+                    f"{ranks[0]['c2_free_gib']:.2f} GiB of the card free "
+                    "before it")
+            else:
+                log(f"phase 18 {name} (c2) {TR_JAMBA} published widths: not "
+                    f"run on {a[0]['shape']} (its reckoned peaks leave the "
+                    "card under 10 GiB)")
+            log(f"phase 18 {name}: B1/B2 launches per rank "
+                f"{[tuple(r['launches'].values()) for r in ranks]} (the "
+                f"train path calls no kernel); seconds per rank (a+d, b, "
+                f"c1, c2) "
+                f"{[tuple(round(t, 1) for t in r['seconds']) for r in ranks]}"
+                f"; {wall:.1f} s")
+    finally:
+        free_references(refs, dev)
     return out
 
 
@@ -4674,28 +5099,41 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    smi = phase_device()
-    phase_kernels(dev)
-    A, V, B, launches = phase_main(dev, args.seed)
-    table = phase_timing(dev, A, V, B, launches)
-    phase_profile(dev, A, V, B)
+    seconds = {}
+
+    def phase(name, fn, *a):
+        """``fn(*a)``, its seconds kept under ``name`` for the summary."""
+        t = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = time.perf_counter() - t
+        return out
+    smi = phase("1", phase_device)
+    phase("2", phase_kernels, dev)
+    A, V, B, launches = phase("3", phase_main, dev, args.seed)
+    table = phase("4", phase_timing, dev, A, V, B, launches)
+    phase("5", phase_profile, dev, A, V, B)
     del V, B
-    _, window_launches = phase_window(dev, A, args.seed)
+    _, window_launches = phase("6", phase_window, dev, A, args.seed)
     for row in table:
         row["scheduler_launches"] = window_launches[row["name"]]
-    phase_pipeline(dev, A, args.seed)
+    phase("7", phase_pipeline, dev, A, args.seed)
     del A
-    app_launches = phase_apps(dev, args.seed)
-    traffic_launches = phase_replay(dev)
-    kvpool_launches = phase_kvpool(dev, args.seed)
-    serve_launches = phase_serve(dev, args.seed)
-    sharded_launches, logical_ms = phase_sharded(dev, args.seed)
-    train_launches = phase_train(dev, args.seed)
-    process_launches = phase_process_mesh(dev, args.seed, logical_ms)
-    service_launches = phase_process_service(dev, args.seed)
-    serving_launches = phase_process_serving(dev, args.seed)
-    train_mesh_launches = phase_train_mesh(dev, args.seed)
-    train_families_launches = phase_train_families(dev, args.seed)
+    app_launches = phase("8", phase_apps, dev, args.seed)
+    traffic_launches = phase("9b", phase_replay, dev)
+    kvpool_launches = phase("9c", phase_kvpool, dev, args.seed)
+    serve_launches = phase("10", phase_serve, dev, args.seed)
+    sharded_launches, logical_ms = phase("11", phase_sharded, dev,
+                                         args.seed)
+    train_launches = phase("12", phase_train, dev, args.seed)
+    process_launches = phase("13", phase_process_mesh, dev, args.seed,
+                             logical_ms)
+    service_launches = phase("14", phase_process_service, dev, args.seed)
+    serving_launches = phase("15", phase_process_serving, dev, args.seed)
+    train_mesh_launches = phase("16", phase_train_mesh, dev, args.seed)
+    train_families_launches = phase("17", phase_train_families, dev,
+                                    args.seed)
+    train_recurrent_launches = phase("18", phase_train_recurrent, dev,
+                                     args.seed)
     for row in table:
         row["app_launches"] = app_launches[row["name"]]
         row["traffic_launches"] = traffic_launches[row["name"]]
@@ -4709,6 +5147,10 @@ def main(argv=None) -> int:
         row["train_mesh_launches"] = train_mesh_launches[row["name"]]
         row["train_families_launches"] = \
             train_families_launches[row["name"]]
+        row["train_recurrent_launches"] = \
+            train_recurrent_launches[row["name"]]
+    log("seconds per phase: " + ", ".join(f"{k} {v:.1f}"
+                                          for k, v in seconds.items()))
     log(f"total {time.perf_counter() - t0:.1f} s")
     print(smi)
     print(json.dumps({"kernels": table}))

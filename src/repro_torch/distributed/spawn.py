@@ -1,16 +1,20 @@
 """Run a function on every rank of a fresh process group, one process per
 rank: the launcher behind the process-mesh tests and ``chip_smoke.py``'s
-phases 13–17, and the ``torch.multiprocessing`` route to a
+phases 13–18, and the ``torch.multiprocessing`` route to a
 ``ProcessMesh`` (``torchrun --nproc-per-node=N`` is the other).
 
 The ranks are forked from ``torch.multiprocessing``'s forkserver, which
 has imported torch once (``PRELOAD``): a rank starts in about a second
 where a spawned interpreter spends seconds importing torch again (on an
 H100 machine, ~11.5 s to start four spawned ranks, ~1.6 s from a warm
-forkserver: ``src/repro_torch/bench/spawn_cost.py``). The server never
-initialises CUDA, so its children may. As with spawn, ``fn`` and its
-arguments are pickled (module-level functions), and the ranks inherit
-the environment the parent had when the server started.
+forkserver: ``src/repro_torch/bench/spawn_cost.py``). The server also
+imports ``torch._dynamo``, which a process's first ``FakeTensorMode``
+imports (sympy among its many modules): the process-mesh train step
+builds its params' shapes as fake tensors, and each rank would pay for
+that import again (``src/repro_torch/bench/rank_setup_cost.py``). The
+server never initialises CUDA, so its children may. As with spawn,
+``fn`` and its arguments are pickled (module-level functions), and the
+ranks inherit the environment the parent had when the server started.
 
     def work(rank, world, scale):          # module level: spawn pickles it
         mesh = process_mesh(device="cpu")
@@ -30,7 +34,8 @@ import os
 import time
 
 
-PRELOAD = ("torch", "torch.distributed")   # imported once, by the server
+# imported once, by the server (none starts a thread or touches CUDA)
+PRELOAD = ("torch", "torch.distributed", "torch._dynamo")
 
 
 class RankFailure(RuntimeError):
@@ -49,6 +54,10 @@ def _child(rank, world, fn, args, backend, init_method, timeout, results):
         backend, init_method=init_method, rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout))
     try:
+        # every rank has joined before any runs fn: a rank that returns at
+        # once would otherwise tear its side down while another is still
+        # connecting (gloo's connectFullMesh then fails on that one)
+        dist.barrier()
         out = fn(rank, world, *args)
     finally:
         dist.destroy_process_group()

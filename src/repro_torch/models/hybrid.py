@@ -12,6 +12,12 @@ Python loop (``transformer.layer_params``). The cache keeps the reference's
 layout — ``k``/``v`` (nsb, B, S_max, n_kv, hd), ``conv`` (nsb, n_mamba, B,
 d_conv-1, d_inner) f32, ``ssm`` (nsb, n_mamba, B, d_inner, d_state) f32 —
 with ``"len"`` a Python int; prefill and decode write its tensors in place.
+
+Over a process mesh (``models.parallel``) the training forward runs each
+layer tensor-parallel over ``model``: the attention layer on the rank's
+kv groups, the Mamba layers on its channel block, the dense FFN as
+Megatron's pair and the MoE with its experts over ``model``. Serving
+(``hybrid_step``) runs on one device.
 """
 from __future__ import annotations
 
@@ -76,7 +82,7 @@ def _ffn(p, x, slot_moe, slot_mlp, use_moe, cfg):
             top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
             use_ep=cfg.moe_a2a)
         return out, M.moe_aux_loss(logits, cfg.n_experts, cfg.top_k)
-    return (L.mlp(layer_params(p["mlp"], slot_mlp), x),
+    return (L.mlp(layer_params(p["mlp"], slot_mlp), x, d_ff=cfg.d_ff),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 
@@ -109,7 +115,8 @@ def _superblock(p, x, *, cfg: ModelConfig, positions, cache=None,
                 r, st = S.mamba_forward(lp, h, return_state=True)
                 new_mstate.append(st)
             else:
-                r = S.mamba_forward(lp, h)
+                r = S.mamba_forward(lp, h,
+                                    d_inner=cfg.ssm_expand * cfg.d_model)
             mi += 1
         x = x + r
         h = L.rms_norm(x, p["ln2"][i])
@@ -138,7 +145,8 @@ def hybrid_forward(params, batch: dict, cfg: ModelConfig):
     for j in range(cfg.n_layers // cfg.attn_period):
         x, aux = body(x, aux, layer_params(params["blocks"], j))
     x = L.rms_norm(x, params["final_norm"])
-    return emb.logits_out(params["embed"], x), aux / max(cfg.n_layers, 1)
+    return (emb.logits_out(params["embed"], x, vocab=cfg.vocab),
+            aux / max(cfg.n_layers, 1))
 
 
 # --- serving ----------------------------------------------------------------

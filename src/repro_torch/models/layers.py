@@ -256,18 +256,19 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _columns(xc: torch.Tensor, w: torch.Tensor, full: int, lo: int,
-             hi: int, mesh, lines_up: bool) -> torch.Tensor:
-    """Columns ``[lo, hi)`` of ``x @ W`` for a weight of ``full`` columns
-    that ``param_specs`` cuts over ``model`` or leaves whole; ``xc`` is x
-    after ``parallel.copy``. A cut weight gives the rank's own columns
-    when ``lines_up`` (every rank needs only its own: no collective), else
-    all-gathers them (the gradient returns as a reduce-scatter). A whole
-    weight is itself ``copy``-ed: each rank uses part of it."""
+             hi: int, mesh, lines_up: bool, mm=torch.matmul) -> torch.Tensor:
+    """Columns ``[lo, hi)`` of ``mm(x, W)`` (``x @ W``) for a weight of
+    ``full`` columns that ``param_specs`` cuts over ``model`` or leaves
+    whole; ``xc`` is x after ``parallel.copy``. A cut weight gives the
+    rank's own columns when ``lines_up`` (every rank needs only its own:
+    no collective), else all-gathers them (the gradient returns as a
+    reduce-scatter). A whole weight is itself ``copy``-ed: each rank uses
+    part of it."""
     if not P.sharded(w.shape[-1], full):
-        return xc @ P.copy(w, mesh)[..., lo:hi]
+        return mm(xc, P.copy(w, mesh)[..., lo:hi])
     if lines_up:
-        return xc @ w
-    return P.gather_last(xc @ w, mesh)[..., lo:hi]
+        return mm(xc, w)
+    return P.gather_last(mm(xc, w), mesh)[..., lo:hi]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -14,6 +14,13 @@ tensor-parallel functions over the ``model`` line:
            over the rank's rows, or to sum what each rank computed on
            its part.
 
+Where a weight is cut on the other dimension than Megatron's pair needs
+(Mamba's ``in_proj`` halves, RWKV's channel-mix ``wv``), the rank
+all-gathers the columns it needs: ``gather_last`` where each rank then
+uses its own part of them (the gradient back is a reduce-scatter),
+``assemble_last`` where every rank uses them whole (the gradient back is
+the rank's own columns).
+
 ``reduce`` also sums over the data-parallel axes where a loss term is a
 mean over the whole batch: every rank then holds the global value, its
 backward seeds only the rank's own tokens, and the step sums the
@@ -86,6 +93,18 @@ def sharded(local: int, full: int) -> bool:
     return int(local) != int(full)
 
 
+def block(mesh: Optional[RankMesh], n: int) -> tuple:
+    """The rank's block ``[lo, hi)`` of ``n`` along ``model``: the block
+    ``param_specs`` cuts a dimension of ``n`` by where ``model`` divides
+    it, an even share of whole rows otherwise; all of it without a
+    ``model`` cut."""
+    ms = model_split(mesh)
+    if ms == 1:
+        return 0, n
+    c = mesh.index("model")
+    return c * n // ms, (c + 1) * n // ms
+
+
 def _all_reduce(x: torch.Tensor, line, op: str = "sum") -> torch.Tensor:
     from repro_torch.distributed import exchange
     return x if line is None else exchange.all_reduce(x, line, op)
@@ -133,6 +152,17 @@ class _GatherLast(torch.autograd.Function):
         return mine[0], None
 
 
+class _AssembleLast(_GatherLast):
+    """``_GatherLast`` for a consumer that every rank runs alike: the
+    gradient, the same on every rank, goes back as the rank's own columns
+    of it (a reduce-scatter would count it once a rank)."""
+
+    @staticmethod
+    def backward(ctx, g):
+        cols = g.shape[-1] // ctx.line.num_shards
+        return g.narrow(-1, ctx.line.rank * cols, cols).contiguous(), None
+
+
 def copy(x: torch.Tensor, mesh: Optional[RankMesh]) -> torch.Tensor:
     """Megatron's *f* over ``model``: identity forward, gradient summed."""
     line = _line(mesh, "model")
@@ -152,6 +182,15 @@ def gather_last(x: torch.Tensor, mesh: Optional[RankMesh]) -> torch.Tensor:
     """Every ``model`` rank's ``x`` side by side along the last dim."""
     line = _line(mesh, "model")
     return x if line is None else _GatherLast.apply(x, line)
+
+
+def assemble_last(x: torch.Tensor, mesh: Optional[RankMesh]
+                  ) -> torch.Tensor:
+    """Every ``model`` rank's columns side by side, as ``gather_last``,
+    for a result that every rank then uses whole (a layer's output): its
+    gradient is the rank's own columns, with no collective."""
+    line = _line(mesh, "model")
+    return x if line is None else _AssembleLast.apply(x, line)
 
 
 @torch.no_grad()

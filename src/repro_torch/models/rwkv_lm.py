@@ -5,6 +5,10 @@ The port of the JAX package's ``models.rwkv_lm``. The cache is
 f32 and ``"len"``, a Python int; prefill and decode write its tensors in
 place (the reference's decode returns ``x_prev`` in the activation dtype,
 the same values).
+
+Over a process mesh (``models.parallel``) the training forward runs each
+layer's time-mix and channel-mix tensor-parallel over ``model``
+(``models.rwkv``); serving (``rwkv_step``) runs on one device.
 """
 from __future__ import annotations
 
@@ -53,7 +57,7 @@ def rwkv_forward(params, batch: dict, cfg: ModelConfig):
     for i in range(cfg.n_layers):
         x = body(x, layer_params(params["layers"], i))
     x = L.rms_norm(x, params["final_norm"])
-    return (emb.logits_out(params["embed"], x),
+    return (emb.logits_out(params["embed"], x, vocab=cfg.vocab),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
 

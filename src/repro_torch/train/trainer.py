@@ -90,17 +90,6 @@ class ShardedStep:
         return self.step(to_dev(params), to_dev(opt_state), to_dev(batch))
 
 
-MESH_FAMILIES = ("dense", "moe", "vlm", "encdec")  # over a process mesh
-
-
-def check_mesh_family(cfg) -> None:
-    """Raise for a family whose step does not run over a process mesh."""
-    if cfg.family not in MESH_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family} family ({cfg.name}) trains over a logical "
-            "mesh only; its step over a process mesh is ROADMAP A14f")
-
-
 def _data_dim(pspec, zspec):
     """The dim ZeRO-1 adds ``data`` to (None where it adds none)."""
     for d, (a, b) in enumerate(zip(pspec, zspec)):
@@ -215,9 +204,8 @@ class ProcessStep:
 def shard_train_step(model, mesh, params_shape, opt_shape, batch_shape,
                      **kw):
     """The train step with explicit specs for ``mesh``: a ``ShardedStep``
-    on a logical mesh, a ``ProcessStep`` on a process mesh (the dense,
-    MoE, VLM and encoder-decoder families; the hybrid and SSM families
-    raise ``NotImplementedError``, ROADMAP A14f).
+    on a logical mesh, a ``ProcessStep`` on a process mesh (every
+    family).
 
     params_shape/opt_shape/batch_shape: trees of tensors or
     ``data.ShapeDtypeStruct`` of the WHOLE leaves (``opt_shape`` is read
@@ -229,7 +217,6 @@ def shard_train_step(model, mesh, params_shape, opt_shape, batch_shape,
     ospecs = {"mu": zspecs, "nu": zspecs, "step": ()}
     bspecs = meshlib.batch_specs(batch_shape, mesh)
     if isinstance(mesh, meshlib.RankMesh):
-        check_mesh_family(model.cfg)
         local_params = tree_map(
             lambda s, t: meshlib.shard_shape(t.shape, s, mesh), pspecs,
             params_shape, is_leaf=meshlib.is_spec)
@@ -263,7 +250,6 @@ class Trainer:
         and keeps its blocks)."""
         params = self.model.init(seed)
         if isinstance(self.mesh, meshlib.RankMesh):
-            check_mesh_family(self.model.cfg)
             pspecs = meshlib.param_specs(params, self.mesh)
             zspecs = meshlib.zero1_specs(pspecs, params, self.mesh)
             moments = meshlib.shard_tree(params, zspecs, self.mesh)

@@ -13,12 +13,11 @@ step onto (1, 2) (``tests/train_mesh_ranks.py::ckpt_main``). Held:
   * every rank restored onto (4, 1), (1, 2), and a single process
     (the logical mesh), holds exactly its slice of each saved leaf, and
     one step runs finite there;
-  * the same for the VLM (Qwen2-VL reduced, ``positions3`` given) and
-    the encoder-decoder (SeamlessM4T reduced: the ``enc``/``dec``/
-    ``xattn`` leaves) from a (2, 2) mesh, restored onto (4, 1) and a
-    single process;
-  * the hybrid and RWKV families refuse a process mesh, naming ROADMAP
-    A14f.
+  * the same for the VLM (Qwen2-VL reduced, ``positions3`` given), the
+    encoder-decoder (SeamlessM4T reduced: the ``enc``/``dec``/``xattn``
+    leaves), the hybrid (Jamba reduced: the ``blocks/mamba`` leaves) and
+    RWKV-6 (reduced: the ``tmix``/``cmix`` leaves) from a (2, 2) mesh,
+    restored onto (4, 1) and a single process.
 """
 import json
 import os
@@ -37,16 +36,14 @@ from repro_torch.core.tree import tree_leaves_with_path, tree_map
 from repro_torch.distributed.spawn import run_ranks
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch.dryrun import abstract_params
-from repro_torch.models import build_model
-from repro_torch.train import Trainer
 from repro_torch.train import checkpoint as ckpt
 from repro_torch.train.elastic import elastic_restore
-from repro_torch.train.trainer import shard_train_step
 
 SPAWN_LIMIT = 180.0
 RESTORES = {4: (4, 1), 2: (1, 2)}
 ARCH = "qwen3-0.6b"
-FAMILY_ARCHS = {"vlm": "qwen2-vl-72b", "encdec": "seamless-m4t-large-v2"}
+FAMILY_ARCHS = {"vlm": "qwen2-vl-72b", "encdec": "seamless-m4t-large-v2",
+                "hybrid": "jamba-1.5-large-398b", "ssm": "rwkv6-1.6b"}
 
 
 def spawn_ckpt(tmp, arch, worlds):
@@ -224,24 +221,3 @@ def test_family_elastic_restore_onto_4x1(family_runs, family):
 @pytest.mark.parametrize("family", sorted(FAMILY_ARCHS))
 def test_family_elastic_restore_onto_a_single_process(family_runs, family):
     check_single_process_restore(family_runs[family])
-
-
-FAMILIES = {"hybrid": "jamba-1.5-large-398b", "ssm": "rwkv6-1.6b"}
-
-
-@pytest.mark.parametrize("family", sorted(FAMILIES))
-def test_other_families_refuse_a_process_mesh(family):
-    """A ``RankMesh`` built by hand (no group: the refusal comes before
-    any collective)."""
-    cfg = configs.get_config(FAMILIES[family]).reduced()
-    assert cfg.family == family
-    model = build_model(cfg, device="cpu")
-    mesh = meshlib.RankMesh((2, 2), ("data", "model"), torch.device("cpu"),
-                            0, "gloo", (0, 0),
-                            {"data": None, "model": None})
-    params = model.init(0)
-    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="A14f"):
-        shard_train_step(model, mesh, params, None, batch)
-    with pytest.raises(NotImplementedError, match="A14f"):
-        Trainer(model=model, mesh=mesh).init_state(0)

@@ -88,11 +88,15 @@ def _counting(calls):
 
 
 def _ep_layer(mesh, cfg, params, batch):
-    """One forward of the first layer's EP MoE: the rank's expert
-    weights and the all-reduces it makes."""
+    """One forward of the first MoE layer's EP MoE (a hybrid's first
+    superblock's first MoE slot): the rank's expert weights and the
+    all-reduces it makes."""
     from repro_torch.distributed import exchange
     from repro_torch.models import moe
-    p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    if "layers" in params:
+        p = {k: v[0] for k, v in params["layers"]["moe"].items()}
+    else:
+        p = {k: v[0, 0] for k, v in params["blocks"]["moe"].items()}
     x = torch.randn(batch, 8, cfg.d_model,
                     generator=torch.Generator().manual_seed(1))
     calls = []
