@@ -277,13 +277,26 @@ class _Share:
     ``model`` line: the kv groups ``[g0, g1)`` it computes, its output
     columns ``[lo, hi)`` (rows of ``wo``), and whether every rank's
     groups are exactly its own columns of ``wq`` (``q_up``) and of
-    ``wk``/``wv`` (``kv_up``)."""
+    ``wk``/``wv`` (``kv_up``). A rank past the last group has an empty
+    share: it computes nothing, adds zeros to the output's sum, and
+    still makes every collective its peers make, so every width is
+    counted from the layer's per-group widths, never from the share's."""
     g0: int
     g1: int
     lo: int
     hi: int
     q_up: bool
     kv_up: bool
+
+    @property
+    def n(self) -> int:
+        """The number of kv groups the rank computes (0 or more)."""
+        return self.g1 - self.g0
+
+    def span(self, width: int) -> tuple:
+        """The rank's columns of a weight with ``width`` columns a kv
+        group."""
+        return self.g0 * width, self.g1 * width
 
 
 def _share(p: dict, mesh, n_heads: int, n_kv: int,
@@ -342,16 +355,14 @@ def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
     n_rep = n_heads // n_kv
     nq, nkv = n_heads * head_dim, n_kv * head_dim
     xc = P.copy(x, mesh)
-    q = _columns(xc, p["wq"], nq, sh.g0 * n_rep * head_dim,
-                 sh.g1 * n_rep * head_dim, mesh, sh.q_up)
-    q = q.reshape(b, s, (sh.g1 - sh.g0) * n_rep, head_dim)
+    q = _columns(xc, p["wq"], nq, *sh.span(n_rep * head_dim), mesh,
+                 sh.q_up).reshape(b, s, sh.n * n_rep, head_dim)
     if "q_norm" in p:
         q = rms_norm(q, P.copy(p["q_norm"], mesh))
     if kv is None:
-        k = _columns(xc, p["wk"], nkv, sh.g0 * head_dim, sh.g1 * head_dim,
-                     mesh, sh.kv_up).reshape(b, s, sh.g1 - sh.g0, head_dim)
-        v = _columns(xc, p["wv"], nkv, sh.g0 * head_dim, sh.g1 * head_dim,
-                     mesh, sh.kv_up).reshape(b, s, sh.g1 - sh.g0, head_dim)
+        k, v = (_columns(xc, p[w], nkv, *sh.span(head_dim), mesh,
+                         sh.kv_up).reshape(b, s, sh.n, head_dim)
+                for w in ("wk", "wv"))
         if "k_norm" in p:
             k = rms_norm(k, P.copy(p["k_norm"], mesh))
         if mrope_sections is not None:
@@ -365,7 +376,7 @@ def _attention_tp(p: dict, x: torch.Tensor, mesh, *, n_heads: int,
     m = _causal_mask(s, s, window=window, device=x.device) \
         if causal and kv is None else None
     out = _attend(q, k, v, m, packed_gqa=packed_gqa, dtype=x.dtype)
-    base = sh.g0 * n_rep * head_dim
+    base, _ = sh.span(n_rep * head_dim)
     out = out[..., sh.lo - base:sh.hi - base]
     wo = p["wo"] if P.sharded(p["wo"].shape[-2], nq) \
         else P.copy(p["wo"], mesh)[..., sh.lo:sh.hi, :]
@@ -389,9 +400,9 @@ def cross_kv(p: dict, enc_out: torch.Tensor, *, n_kv: int, head_dim: int,
     b, s, _ = enc_out.shape
     sh = _share(p, mesh, n_heads, n_kv, head_dim)
     ec = P.copy(enc_out, mesh)
-    k, v = (_columns(ec, p[w], n_kv * head_dim, sh.g0 * head_dim,
-                     sh.g1 * head_dim, mesh, sh.kv_up)
-            .reshape(b, s, sh.g1 - sh.g0, head_dim) for w in ("wk", "wv"))
+    k, v = (_columns(ec, p[w], n_kv * head_dim, *sh.span(head_dim), mesh,
+                     sh.kv_up).reshape(b, s, sh.n, head_dim)
+            for w in ("wk", "wv"))
     return k, v
 
 

@@ -102,7 +102,7 @@ def _tmix_projections(p, x, shifted, n_heads, bf16_comm=False,
     b, s, d = x.shape
     hd = d // n_heads
     sh = sh or L._share(p, None, n_heads, n_heads, hd)
-    lo, hi = sh.g0 * hd, sh.g1 * hd
+    lo, hi = sh.span(hd)
     acc = _acc(x.dtype)
     mm_dt = torch.bfloat16 if bf16_comm else acc
     xf = x.to(mm_dt)
@@ -119,7 +119,7 @@ def _tmix_projections(p, x, shifted, n_heads, bf16_comm=False,
 
     def proj(mixed, w):
         return L._columns(mixed, w, d, lo, hi, mesh, sh.kv_up,
-                          mm).to(acc).reshape(b, s, sh.g1 - sh.g0, hd)
+                          mm).to(acc).reshape(b, s, sh.n, hd)
 
     r = proj(mix(p["mix_r"]), p["wr"])
     k = proj(mix(p["mix_k"]), p["wk"])
@@ -127,15 +127,16 @@ def _tmix_projections(p, x, shifted, n_heads, bf16_comm=False,
     w_base = P.copy(p["w_base"], mesh)[lo:hi]
     w = torch.exp(-torch.exp(
         w_base + proj(mix(p["mix_w"]), p["w_dd"]).reshape(b, s, hi - lo)))
-    return r, k, v, w.reshape(b, s, sh.g1 - sh.g0, hd)
+    return r, k, v, w.reshape(b, s, sh.n, hd)
 
 
-def _head_norm(y, scale, n_heads):
-    """Per-head RMS norm (RWKV's GroupNorm): normalization stays local to
-    the head => no cross-`model` gather before the output projection."""
+def _head_norm(y, scale, hd):
+    """Per-head RMS norm (RWKV's GroupNorm) over heads of width ``hd``
+    (the layer's, so that a rank with no head norms none):
+    normalization stays local to the head => no cross-`model` gather
+    before the output projection."""
     b, s, d = y.shape
-    hd = d // n_heads
-    yh = y.reshape(b, s, n_heads, hd)
+    yh = y.reshape(b, s, d // hd, hd)
     yh = rms_norm(yh, torch.ones((hd,), device=y.device))
     return yh.reshape(b, s, d) * scale.to(yh.dtype)
 
@@ -150,13 +151,14 @@ def _wkv(r_t, k_t, v_t, w_t, state, u):
 def _out_proj(p, y, n_heads, bf16_comm, dtype, sh=None, mesh=None):
     """The output of the heads ``[sh.g0, sh.g1)`` (every head where
     ``sh`` is None): their norm, then the rank's output columns (rows of
-    ``wo``), summed over ``model``."""
+    ``wo``), summed over ``model``. A rank with no head adds a zero
+    product to the sum."""
     d = p["ln_x"].shape[-1]
     hd = d // n_heads
     sh = sh or L._share(p, None, n_heads, n_heads, hd)
-    base = sh.g0 * hd
-    y = _head_norm(y, P.copy(p["ln_x"], mesh)[base:sh.g1 * hd],
-                   sh.g1 - sh.g0)[..., sh.lo - base:sh.hi - base]
+    base, top = sh.span(hd)
+    y = _head_norm(y, P.copy(p["ln_x"], mesh)[base:top],
+                   hd)[..., sh.lo - base:sh.hi - base]
     wo = p["wo"] if P.sharded(p["wo"].shape[-2], d) \
         else P.copy(p["wo"], mesh)[sh.lo:sh.hi]
     mm_dt = torch.bfloat16 if bf16_comm else _acc(dtype)
@@ -178,13 +180,12 @@ def rwkv_tmix_forward(p: dict, x: torch.Tensor, n_heads: int,
                                    shard_hints, sh, mesh)
     u = p["u"] if P.sharded(p["u"].shape[-2], n_heads) \
         else P.copy(p["u"], mesh)[sh.g0:sh.g1]
-    state = torch.zeros((b, sh.g1 - sh.g0, hd, hd), dtype=r.dtype,
-                        device=x.device)
+    state = torch.zeros((b, sh.n, hd, hd), dtype=r.dtype, device=x.device)
     ys = []
     for t in range(s):
         y_t, state = _wkv(r[:, t], k[:, t], v[:, t], w[:, t], state, u)
         ys.append(y_t)
-    y = torch.stack(ys, dim=1).reshape(b, s, -1)       # (B,S,heads*hd)
+    y = torch.stack(ys, dim=1).reshape(b, s, sh.n * hd)   # (B,S,heads*hd)
     out = _out_proj(p, y, n_heads, bf16_comm, x.dtype, sh, mesh)
     if return_state:
         return out, {"S": state, "x_prev": x[:, -1, :].to(r.dtype)}

@@ -38,6 +38,7 @@ from repro_torch.distributed import (Mesh, ShardedEngine, as_mesh,
                                      device_mesh, shard_row_ranges)
 from repro_torch.distributed import exchange as px
 from repro_torch.testing import fuzzer, harness
+from spawn_once import once
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 MESHES = (1, 2, 4, 8)
@@ -425,8 +426,13 @@ def _stats_run(eng):
 
 
 @pytest.fixture(scope="module")
-def ref_stats(request):
+def ref_stats(request, tmp_path_factory):
     sizes = (1, 2, 4, 8) if request.config.getoption("--runslow") else (8,)
+    return once(tmp_path_factory, f"ref_stats-{len(sizes)}",
+                lambda: _ref_stats(sizes))
+
+
+def _ref_stats(sizes):
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                XLA_FLAGS="--xla_force_host_platform_device_count=8",
                PYTHONPATH=os.pathsep.join([os.path.join(ROOT, "src"),

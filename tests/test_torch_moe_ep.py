@@ -25,6 +25,7 @@ import torch
 from repro_torch.launch import mesh as meshlib
 from repro_torch.models import moe
 from repro_torch.train.trainer import value_and_grad
+from spawn_once import once
 
 ROOT = Path(__file__).resolve().parents[1]
 RTOL, ATOL = 1e-5, 1e-6
@@ -80,7 +81,12 @@ _SCRIPT = textwrap.dedent("""
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
     """The reference's results on every case, from one subprocess."""
-    path = tmp_path_factory.mktemp("ep") / "cases.npz"
+    return once(tmp_path_factory, "moe_ep_reference",
+                lambda: _reference(tmp_path_factory.mktemp("ep")))
+
+
+def _reference(tmp):
+    path = tmp / "cases.npz"
     arrays = {}
     for name in CASES:
         p, x = inputs(name)

@@ -32,6 +32,7 @@ import pytest
 import torch
 
 import process_mesh_ranks as pr
+from spawn_once import once
 from repro_torch.core import Scheduler
 from repro_torch.plan import CostModel
 from repro_torch.distributed import (ProcessMesh, ShardedEngine,
@@ -73,8 +74,14 @@ def _gather_exact(got, want, what):
 
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("process_mesh")
-    sizes = [2, 4] + ([8] if request.config.getoption("--runslow") else [])
+    slow = request.config.getoption("--runslow")
+    return once(tmp_path_factory, f"process_mesh-slow{int(slow)}",
+                lambda: _spawn(slow, tmp_path_factory.mktemp("process_mesh")))
+
+
+def _spawn(slow, tmp):
+    """The reference at each mesh size and each gloo world, once."""
+    sizes = [2, 4] + ([8] if slow else [])
     cases_path = tmp / "cases.pkl"
     cases_path.write_bytes(pickle.dumps(cases()))
     env = dict(os.environ, JAX_PLATFORMS="cpu",

@@ -38,6 +38,7 @@ import pytest
 import torch
 
 import process_mesh_ranks as pr
+from spawn_once import once
 from repro_torch.apps import APPS
 from repro_torch.core import Scheduler, interop
 from repro_torch.distributed import ShardedEngine
@@ -98,8 +99,14 @@ def _ref_jobs(mixed, apps):
 
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("process_service")
     slow_run = request.config.getoption("--runslow")
+    return once(tmp_path_factory, f"process_service-slow{int(slow_run)}",
+                lambda: _spawn(slow_run,
+                               tmp_path_factory.mktemp("process_service")))
+
+
+def _spawn(slow_run, tmp):
+    """The reference's jobs and each gloo world, once."""
     worlds = [2, 4] + ([8] if slow_run else [])
     mixed, apps = _ref_pairs(slow_run)
     # the reference compiles every window anew: its compiles at LLVM's

@@ -43,6 +43,7 @@ import pytest
 import torch
 
 import process_mesh_ranks as pr
+from spawn_once import once
 from repro_torch.distributed import ShardedEngine, shard_row_ranges
 from repro_torch.distributed.spawn import run_ranks
 
@@ -60,8 +61,15 @@ WORLDS = (2, 4, pytest.param(8, marks=slow))
 
 @pytest.fixture(scope="module")
 def runs(request, tmp_path_factory):
-    tmp = tmp_path_factory.mktemp("process_serving")
     slow_run = request.config.getoption("--runslow")
+    return once(tmp_path_factory, f"process_serving-slow{int(slow_run)}",
+                lambda: _spawn(slow_run,
+                               tmp_path_factory.mktemp("process_serving")))
+
+
+def _spawn(slow_run, tmp):
+    """The reference's replays and KV pool server and each gloo world,
+    once."""
     worlds = [2, 4] + ([8] if slow_run else [])
     cases = REF_CASES + (SLOW_REF_CASES if slow_run else ())
     corpus = CORPUS + (SLOW_CORPUS if slow_run else ())

@@ -23,13 +23,19 @@ the ('pod', 'data', 'model') mesh, the GSPMD MoE with a capacity that
 drops tokens (queue places follow the global token order), and the EP
 MoE (A14d) on (1, 4) and (2, 2), there also on a batch of 1 (each rank
 runs every data block for its expert) — (2, 4) and (4, 2) with
-``--runslow``.
+``--runslow``. And the shares a ``model`` cut leaves empty: the EP MoE
+asked for at (1, 4) with 2 experts, fewer than the ranks (the experts
+stay whole and every rank runs the GSPMD MoE over all of them, as the
+reference's ``moe_ffn_auto`` does), and Qwen3 reduced at (1, 4) on
+tokens and labels all in rank 0's quarter of the vocabulary (the other
+ranks' rows of the table are read by no token and hold no label).
 """
 import numpy as np
 import pytest
 
 import train_mesh_ranks as tr
 import train_mesh_reference as ref
+from spawn_once import once
 
 DN = ("data", "model")
 CASES = {
@@ -77,6 +83,12 @@ CASES = {
                         ov={"n_experts": 2, "top_k": 1,
                             "capacity_factor": 0.5}, batch=4, seq=16,
                         steps=2),
+    "dbrx_ep_2_experts_1x4": dict(arch="dbrx-132b", mesh=(1, 4), axes=DN,
+                                  ep=True, ov={"n_experts": 2, "top_k": 1},
+                                  batch=4, seq=16, steps=2),
+    "qwen3_vocab_rank0_1x4": dict(arch="qwen3-0.6b", mesh=(1, 4), axes=DN,
+                                  batch=4, seq=16, steps=2,
+                                  tokens_below=64),
 }
 SLOW = {"dbrx_ep_2x4", "dbrx_ep_4x2"}
 
@@ -98,9 +110,10 @@ def runs(request, tmp_path_factory):
     """The reference in subprocesses and each gloo world spawned once
     (``train_mesh_reference.run_cases``)."""
     slow = request.config.getoption("--runslow")
-    return ref.run_cases({n: c for n, c in CASES.items()
-                          if slow or n not in SLOW},
-                         tmp_path_factory.mktemp("train_mesh"))
+    return once(tmp_path_factory, f"train_mesh-slow{int(slow)}",
+                lambda: ref.run_cases({n: c for n, c in CASES.items()
+                                       if slow or n not in SLOW},
+                                      tmp_path_factory.mktemp("train_mesh")))
 
 
 def ranks_of(runs, name):
@@ -147,8 +160,15 @@ def test_the_drop_case_drops():
     assert abs(float(drop) - float(full)) > 1e-4
 
 
+def ep_taken(name) -> bool:
+    """EP asked for, with one expert a ``model`` rank."""
+    case = CASES[name]
+    return bool(case.get("ep")) and \
+        tr.case_config(case).n_experts == case["mesh"][-1]
+
+
 @pytest.mark.parametrize("name", [case_param(n) for n in CASES
-                                  if CASES[n].get("ep")])
+                                  if ep_taken(n)])
 def test_ep_runs_one_expert_per_rank_and_one_all_reduce(runs, name):
     """A14d: each rank holds one expert's weights, and the EP layer's
     forward makes exactly one collective, the combine's all-reduce over
@@ -158,6 +178,35 @@ def test_ep_runs_one_expert_per_rank_and_one_all_reduce(runs, name):
         ep = r["ep"]
         assert ep["w_gate"] == (1, cfg.d_model, cfg.d_ff)
         assert [axis for axis, _ in ep["all_reduces"]] == ["model"]
+
+
+@pytest.mark.parametrize("name", [n for n in CASES
+                                  if CASES[n].get("ep") and not ep_taken(n)])
+def test_ep_with_fewer_experts_than_ranks_runs_them_all(runs, name):
+    """EP asked for with fewer experts than ``model`` ranks, where EP
+    would leave a rank no expert: the experts stay whole (``param_specs``
+    does not cut 2 over 4), every rank runs the GSPMD MoE over all of
+    them, and its forward makes no all-reduce."""
+    cfg = tr.case_config(CASES[name])
+    assert cfg.n_experts < CASES[name]["mesh"][-1]
+    for r in ranks_of(runs, name):
+        ep = r["ep"]
+        assert ep["w_gate"] == (cfg.n_experts, cfg.d_model, cfg.d_ff)
+        assert ep["all_reduces"] == []
+
+
+def test_the_vocab_case_leaves_ranks_rows_no_token_reads():
+    """Every token and label of ``qwen3_vocab_rank0_1x4`` lies in rank
+    0's rows of the table, which the specs cut over ``model``."""
+    from repro_torch.launch import mesh as meshlib
+    case = CASES["qwen3_vocab_rank0_1x4"]
+    params, batch = tr.case_inputs("qwen3_vocab_rank0_1x4", case)
+    stub = meshlib.Mesh(case["mesh"], case["axes"], "cpu")
+    assert meshlib.param_specs(params, stub)["embed"] == ("model", None)
+    rows = params["embed"].shape[0] // case["mesh"][-1]
+    assert rows == case["tokens_below"]
+    for k in ("tokens", "labels"):
+        assert batch[k].max() < rows
 
 
 # ---------------------------------------------------------------------------

@@ -30,6 +30,7 @@ import pytest
 import torch
 
 import train_mesh_ranks as tr
+from spawn_once import once
 from repro.train import checkpoint as ref_ckpt
 from repro_torch import configs
 from repro_torch.core.tree import tree_leaves_with_path, tree_map
@@ -65,16 +66,18 @@ def spawn_ckpt(tmp, arch, worlds):
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return spawn_ckpt(tmp_path_factory.mktemp("train_mesh_ckpt"), ARCH,
-                      ((4, (2, 2)), (2, None)))
+    return once(tmp_path_factory, "train_mesh_ckpt", lambda: spawn_ckpt(
+        tmp_path_factory.mktemp("train_mesh_ckpt"), ARCH,
+        ((4, (2, 2)), (2, None))))
 
 
 @pytest.fixture(scope="module")
 def family_runs(tmp_path_factory):
     """Each new family saved from (2, 2) and restored onto (4, 1)."""
-    return {f: spawn_ckpt(tmp_path_factory.mktemp(f"ckpt_{f}"), arch,
-                          ((4, (2, 2)),))
-            for f, arch in FAMILY_ARCHS.items()}
+    return once(tmp_path_factory, "train_mesh_ckpt_families", lambda: {
+        f: spawn_ckpt(tmp_path_factory.mktemp(f"ckpt_{f}"), arch,
+                      ((4, (2, 2)),))
+        for f, arch in FAMILY_ARCHS.items()})
 
 
 def whole_tree(runs):

@@ -24,11 +24,16 @@ The cases cover what a (1, 1) mesh cannot show:
     rank computes no head) and at 6 heads of 6 (36 columns, 1.5 heads a
     rank: ``cross_kv`` all-gathers the columns of its heads). No even
     head width leaves 6 heads whole at model 4 (6 x 2k columns divide by
-    4), so the whole-weight case takes 3.
+    4), so the whole-weight case takes 3. And at (1, 4) at 3 query heads
+    over one kv head of 6: every attention weight whole, rank 0 computes
+    the one kv group (three query heads) of every attention and of the
+    cross-attention's ``cross_kv``, and the other three ranks an empty
+    share (a zero product in the output's sum).
 """
 import pytest
 
 import train_mesh_reference as ref
+from spawn_once import once
 
 DN = ("data", "model")
 VLM = dict(arch="qwen2-vl-72b", axes=DN, seq=64, grid=(1, 2, 2), steps=2)
@@ -46,12 +51,16 @@ CASES = {
     "seamless_6_heads_1x4": dict(
         SEAMLESS, mesh=(1, 4), ov={"vocab": 258, "n_heads": 6,
                                    "n_kv_heads": 6, "head_dim": 6}),
+    "seamless_one_kv_group_1x4": dict(
+        SEAMLESS, mesh=(1, 4), ov={"vocab": 258, "n_heads": 3,
+                                   "n_kv_heads": 1, "head_dim": 6}),
 }
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return ref.run_cases(CASES, tmp_path_factory.mktemp("train_families"))
+    return once(tmp_path_factory, "train_families", lambda: ref.run_cases(
+        CASES, tmp_path_factory.mktemp("train_families")))
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -73,7 +82,8 @@ def test_the_cases_reach_the_branches_they_name():
     """The specs the cases rely on: positions3 replicated by the
     reference at data 2 (so the rank's cut is the port's), the tied
     table cut at model 2 and whole at model 4, the attention weights
-    whole at 3 heads of 6 and cut off the head boundary at 6."""
+    whole at 3 heads of 6 and cut off the head boundary at 6, and at one
+    kv group every rank but the first with an empty share."""
     from repro_torch.launch import mesh as meshlib
     import train_mesh_ranks as tr
 
@@ -100,3 +110,25 @@ def test_the_cases_reach_the_branches_they_name():
                 assert whole[part][attn][w] == (None, None, None), (part, w)
     cut = specs("seamless_6_heads_1x4")[0]["dec"]["xattn"]
     assert cut["wk"] == (None, None, "model")      # 9 columns a rank
+    whole = specs("seamless_one_kv_group_1x4")[0]["dec"]["xattn"]
+    assert {whole[w] for w in ("wq", "wk", "wv", "wo")} == {(None,) * 3}
+    assert [share_of("seamless_one_kv_group_1x4", r).n
+            for r in range(4)] == [1, 0, 0, 0]
+
+
+def share_of(name, r):
+    """Model rank ``r``'s share of the cross-attention (``layers._share``)
+    at case ``name``'s widths."""
+    import torch
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers as L
+    import train_mesh_ranks as tr
+    case = CASES[name]
+    cfg = tr.case_config(case)
+    params, _ = tr.case_inputs(name, case)
+    ms = case["mesh"][-1]
+    mesh = meshlib.RankMesh((1, ms), DN, torch.device("cpu"), r, "gloo",
+                            (0, r), {})
+    wo = params["dec"]["xattn"]["wo"][0]          # whole at these widths
+    return L._share({"wo": torch.from_numpy(wo)}, mesh, cfg.n_heads,
+                    cfg.n_kv_heads, cfg.head_dim)

@@ -21,11 +21,16 @@ over 4 experts in the odd ones), d 64, seq 16. The cases cover what a
     does not divide by 4, so ``param_specs`` cuts ``in_proj`` (180
     columns) and leaves every other Mamba leaf whole (each used on the
     rank's share through ``copy``);
-  * the EP MoE (``moe_a2a``) at (1, 4), one expert a rank.
+  * the EP MoE (``moe_a2a``) at (1, 4), one expert a rank;
+  * d 3 with ``ssm_expand`` 1 at (1, 4): ``d_inner`` 3, below ``model``,
+    so every Mamba leaf is whole and the channel blocks are 0, 1, 1 and 1
+    channels: rank 0 scans no channel and adds a zero product to the
+    sum, while making every collective its peers make.
 """
 import pytest
 
 import train_mesh_reference as ref
+from spawn_once import once
 
 DN = ("data", "model")
 JAMBA = dict(arch="jamba-1.5-large-398b", axes=DN, batch=4, seq=16,
@@ -36,12 +41,15 @@ CASES = {
     "jamba_d45_1x4": dict(JAMBA, mesh=(1, 4), ov=dict(
         d_model=45, n_heads=4, n_kv_heads=2, head_dim=16)),
     "jamba_ep_1x4": dict(JAMBA, mesh=(1, 4), ep=True),
+    "jamba_d_inner3_1x4": dict(JAMBA, mesh=(1, 4), ov=dict(
+        d_model=3, ssm_expand=1, n_heads=4, n_kv_heads=2, head_dim=16)),
 }
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    return ref.run_cases(CASES, tmp_path_factory.mktemp("train_hybrid"))
+    return once(tmp_path_factory, "train_hybrid", lambda: ref.run_cases(
+        CASES, tmp_path_factory.mktemp("train_hybrid")))
 
 
 @pytest.mark.parametrize("name", CASES)
@@ -63,7 +71,8 @@ def test_the_cases_reach_the_branches_they_name():
     """The specs the cases rely on: at (2, 2) ``in_proj`` cut in halves
     that are ``u`` and ``z`` and every channel leaf cut; at d 45 only
     ``in_proj`` cut; the superblock holding attention, Mamba and MoE
-    layers; EP on."""
+    layers; EP on; at ``d_inner`` 3 every Mamba leaf whole and rank 0's
+    channel block empty."""
     from repro_torch.launch import mesh as meshlib
     import train_mesh_ranks as tr
 
@@ -91,3 +100,14 @@ def test_the_cases_reach_the_branches_they_name():
     assert params["blocks"]["moe"]["w_gate"].shape[1] == 4
     assert params["blocks"]["mamba"]["in_proj"].shape[1] == 7
     assert tr.case_config(CASES["jamba_ep_1x4"]).moe_a2a
+    tiny, params = mamba_specs("jamba_d_inner3_1x4")
+    assert params["blocks"]["mamba"]["conv_w"].shape[-1] == 3
+    for leaf in ("in_proj", "conv_w", "dt_proj", "x_proj", "A_log", "D",
+                 "out_proj"):
+        assert set(tiny[leaf]) == {None}, leaf
+    import torch
+    from repro_torch.models import parallel as P
+    blocks = [P.block(meshlib.RankMesh((1, 4), DN, torch.device("cpu"), r,
+                                       "gloo", (0, r), {}), 3)
+              for r in range(4)]
+    assert blocks == [(0, 0), (0, 1), (1, 2), (2, 3)]

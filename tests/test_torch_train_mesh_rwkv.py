@@ -23,11 +23,20 @@ cover what a (1, 1) mesh cannot show:
   * d 45 with 3 heads of 15 at (1, 2): every time-mix weight and the
     channel-mix's ``wv`` whole, so the time-mix shares out whole heads of
     whole weights and the channel-mix is Megatron's pair over a share of
-    ``d_ff``.
+    ``d_ff``;
+  * empty shares, where a rank computes nothing and still makes every
+    collective its peers make: d 45 with 3 heads at (1, 4) and one head
+    of 45 at (1, 2), where the last rank has no head of the time-mix (its
+    output a zero product in the sum); d_ff 1 at (1, 2), where rank 0 has
+    no column of the channel-mix's ``d_ff``; and, with ``--runslow`` (a
+    world of 3 of its own), RWKV-6 reduced at (1, 3), 4 heads dealt two
+    a rank and none to the third.
 """
 import pytest
+import torch
 
 import train_mesh_reference as ref
+from spawn_once import once
 
 DN = ("data", "model")
 RWKV = dict(arch="rwkv6-1.6b", axes=DN, batch=4, seq=16, steps=2)
@@ -40,25 +49,42 @@ CASES = {
     "rwkv_dff130_1x4": dict(RWKV, mesh=(1, 4), ov={"d_ff": 130}),
     "rwkv_d45_1x2": dict(RWKV, mesh=(1, 2), batch=2,
                          ov={"d_model": 45, "n_heads": 3, "head_dim": 15}),
+    "rwkv_d45_no_head_1x4": dict(RWKV, mesh=(1, 4),
+                                 ov={"d_model": 45, "n_heads": 3,
+                                     "head_dim": 15}),
+    "rwkv_one_head_1x2": dict(RWKV, mesh=(1, 2), batch=2,
+                              ov={"d_model": 45, "n_heads": 1,
+                                  "head_dim": 45}),
+    "rwkv_dff1_1x2": dict(RWKV, mesh=(1, 2), batch=2,
+                          ov={"d_model": 45, "n_heads": 3, "head_dim": 15,
+                              "d_ff": 1}),
+    "rwkv_no_head_1x3": dict(RWKV, mesh=(1, 3)),
 }
+SLOW = {"rwkv_no_head_1x3"}         # the only case at world 3
+NAMES = [pytest.param(n, marks=pytest.mark.slow) if n in SLOW else n
+         for n in CASES]
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    return ref.run_cases(CASES, tmp_path_factory.mktemp("train_rwkv"))
+def runs(request, tmp_path_factory):
+    slow = request.config.getoption("--runslow")
+    return once(tmp_path_factory, f"train_rwkv-slow{int(slow)}",
+                lambda: ref.run_cases(
+                    {n: c for n, c in CASES.items() if slow or n not in SLOW},
+                    tmp_path_factory.mktemp("train_rwkv")))
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", NAMES)
 def test_loss_and_grad_norm_match_the_reference_step(runs, name):
     ref.check_metrics(runs, name, CASES[name])
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", NAMES)
 def test_every_updated_leaf_matches_the_reference(runs, name):
     ref.check_leaves(runs, name, CASES[name])
 
 
-@pytest.mark.parametrize("name", CASES)
+@pytest.mark.parametrize("name", NAMES)
 def test_each_rank_holds_only_its_shards(runs, name):
     ref.check_held(runs, name, CASES[name])
 
@@ -69,8 +95,12 @@ def test_the_cases_reach_the_branches_they_name():
     the time-mix's columns cut mid-head at d 48, the table cut at
     (2, 2) and whole at vocab 258, the channel-mix's ``wk`` whole at
     d_ff 130, every time-mix weight and the channel-mix's ``wv`` whole
-    at d 45."""
+    at d 45; and the empty shares: the last rank's heads of the
+    time-mix at d 45 over 4 ranks, at one head over 2 and at 4 heads over
+    3, and rank 0's block of ``d_ff`` at d_ff 1."""
     from repro_torch.launch import mesh as meshlib
+    from repro_torch.models import layers as L
+    from repro_torch.models import parallel as P
     import train_mesh_ranks as tr
 
     def specs(name):
@@ -102,3 +132,29 @@ def test_the_cases_reach_the_branches_they_name():
         assert set(s["layers"]["tmix"][leaf]) == {None}, leaf
     assert s["layers"]["cmix"]["wk"] == (None, None, "model")
     assert set(s["layers"]["cmix"]["wv"]) == {None}
+
+    def shares(name):
+        """Each ``model`` rank's heads of the time-mix and block of
+        ``d_ff``, as ``rwkv`` deals them out."""
+        case = CASES[name]
+        cfg = tr.case_config(case)
+        s = specs(name)[0]["layers"]["tmix"]
+        ms = case["mesh"][-1]
+        hd = cfg.d_model // cfg.n_heads
+        wo_rows = cfg.d_model // (ms if s["wo"][1] == "model" else 1)
+        got = []
+        for r in range(ms):
+            mesh = meshlib.RankMesh((1, ms), DN, torch.device("cpu"), r,
+                                    "gloo", (0, r), {})
+            p = {"wo": torch.empty(wo_rows, cfg.d_model)}
+            got.append((L._share(p, mesh, cfg.n_heads, cfg.n_heads, hd).n,
+                        P.block(mesh, cfg.d_ff)))
+        return got
+    assert [n for n, _ in shares("rwkv_d45_no_head_1x4")] == [1, 1, 1, 0]
+    assert [n for n, _ in shares("rwkv_one_head_1x2")] == [1, 0]
+    assert [n for n, _ in shares("rwkv_no_head_1x3")] == [2, 2, 0]
+    dff = shares("rwkv_dff1_1x2")
+    assert [n for n, _ in dff] == [2, 1]
+    assert [b for _, b in dff] == [(0, 0), (0, 1)]
+    s = specs("rwkv_dff1_1x2")[0]["layers"]["cmix"]
+    assert set(s["wv"]) == {None}      # Megatron's pair over d_ff blocks

@@ -1,9 +1,11 @@
 """The port's 64-bit mode (``JAX_ENABLE_X64=1``) against the reference's.
 
 Both packages read ``JAX_ENABLE_X64`` once, at import, so the checks run in
-one subprocess started with it set: this file run as a script executes
-every case below and prints one JSON object, case name -> "ok" or the
-failure; each pytest case reads its entry. Inputs are made from a seed
+subprocesses started with it set: this file run as a script executes
+every case below (or, given ``k n``, every n-th from the k-th) and prints
+one JSON object, case name -> "ok" or the failure; the module fixture
+deals the cases to ``X64_PROCS`` such processes, and each pytest case
+reads its entry. Inputs are made from a seed
 with NumPy and fed to both packages, as in test_torch_isa.py (which holds
 the x64-off mode):
 
@@ -26,6 +28,8 @@ import traceback
 import numpy as np
 import pytest
 
+from spawn_once import once
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KINDS = ("i32", "u32", "f32", "bf16", "i64", "u64", "f64")
 WIDE = ("i64", "u64", "f64")
@@ -35,6 +39,7 @@ RMW_OPS = ("ADD", "MIN", "MAX", "AND", "OR", "XOR", "MUL")
 PROGRAMS = ("mixed_alu", "wide_rmw", "shifts", "converts")
 FUZZ_SEEDS = tuple(range(12))
 N = 256
+X64_PROCS = 3
 
 CASES = (["widths", "probe"]
          + [f"alu:{op}:{k}" for op in ALU_OPS for k in WIDE]
@@ -77,7 +82,7 @@ def _shift_amounts(kind, seed):
     return _as_kind(b, kind)
 
 
-def _checks():
+def _checks(cases):
     import jax.numpy as jnp
     import torch
 
@@ -246,7 +251,7 @@ def _checks():
              "promote": promote, "convert": convert, "identity": identity,
              "program": program, "fuzz": lambda s: fuzz(int(s))}
     results = {}
-    for case in CASES:
+    for case in cases:
         kind, *args = case.split(":")
         try:
             table[kind](*args)
@@ -261,15 +266,30 @@ def _checks():
 # ---------------------------------------------------------------------------
 
 @pytest.fixture(scope="module")
-def x64_results():
+def x64_results(tmp_path_factory):
+    return once(tmp_path_factory, "x64_results", _x64_subprocess)
+
+
+def _x64_subprocess():
     env = dict(os.environ, JAX_ENABLE_X64="1", JAX_PLATFORMS="cpu",
                PYTHONPATH=os.pathsep.join(
                    [os.path.join(ROOT, "src"), os.path.join(ROOT, "tests")]))
-    out = subprocess.run([sys.executable, os.path.abspath(__file__)],
-                         env=env, cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    assert out.returncode == 0, out.stderr[-4000:]
-    return json.loads(out.stdout.strip().splitlines()[-1])
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(k), str(X64_PROCS)],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for k in range(X64_PROCS)]
+    results = {}
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=600)
+            assert proc.returncode == 0, err[-4000:]
+            results.update(json.loads(out.strip().splitlines()[-1]))
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    return results
 
 
 @pytest.mark.parametrize("case", CASES)
@@ -285,4 +305,5 @@ def test_x64_off_is_the_default():
 
 
 if __name__ == "__main__":
-    print(json.dumps(_checks()))
+    k, n = map(int, sys.argv[1:3]) if len(sys.argv) > 2 else (0, 1)
+    print(json.dumps(_checks(CASES[k::n])))

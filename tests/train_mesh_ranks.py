@@ -42,7 +42,9 @@ def case_inputs(name, case):
     NumPy trees: the same arrays go to the reference. ``grid``: the VLM's
     ``positions3`` given (``vlm_positions3``); ``src``: the encoder's
     source length (the target's is ``seq // 2``); ``mask``: a loss mask
-    uneven across the data shards."""
+    uneven across the data shards; ``tokens_below``: every token and
+    label taken modulo it (a vocabulary cut whose other rows no token
+    reads and no label names)."""
     from repro_torch.data import make_batch
     cfg = case_config(case)
     params = build_model(cfg, device="cpu").init(SEED)
@@ -58,6 +60,9 @@ def case_inputs(name, case):
         batch["src_embeds"] = rng.normal(
             size=(case["batch"], case["src"], cfg.d_model)).astype(
                 np.float32)
+    if "tokens_below" in case:
+        for k in ("tokens", "labels"):
+            batch[k] = batch[k] % case["tokens_below"]
     if case.get("mask"):
         # the first rows keep 3 tokens, the last loses one
         mask = np.ones(batch["labels"].shape, np.float32)

@@ -2,8 +2,9 @@
 tests/test_torch_train_mesh_families.py, and the checks both make.
 
 ``run_cases`` draws each case's inputs (``train_mesh_ranks.case_inputs``),
-starts the reference's sharded step in one subprocess per world (this
-file run as a script, on 8 forced host devices, meshes built with ``Auto``
+starts the reference's sharded step in up to ``REF_PROCS`` subprocesses
+per world (this file run as a script, on 8 forced host devices, each
+with a share of the world's cases, meshes built with ``Auto``
 axis types: ``launch.mesh.make_host_mesh`` gives ``Explicit`` axes on the
 installed JAX, where the sharded step's embedding gather fails; ROADMAP,
 reference caveats) and, while they run, spawns each gloo world once
@@ -34,6 +35,9 @@ import train_mesh_ranks as tr
 ROOT = Path(__file__).resolve().parents[1]
 GRAD_REL_L2, METRIC_RTOL = 2e-5, 1e-5       # as tests/test_torch_train.py
 SPAWN_LIMIT = 180.0
+# the reference processes a world's cases are dealt to, round robin: its
+# compiles dominate the set-up, and one process compiled them one by one
+REF_PROCS = 5
 
 
 def world_of(case) -> int:
@@ -110,12 +114,17 @@ def run_cases(cases: dict, tmp: Path) -> dict:
                PYTHONPATH=os.pathsep.join([str(ROOT / "src"),
                                            str(ROOT / "tests")]))
     worlds = sorted({world_of(c) for c in cases.values()})
-    # one reference process per world, running while the worlds spawn
-    refs = {w: subprocess.Popen(
-        [sys.executable, __file__, str(inputs), str(tmp / f"ref{w}.npz"),
-         json.dumps({n: c for n, c in cases.items() if world_of(c) == w})],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True) for w in worlds}
+    # up to REF_PROCS reference processes per world, running while the
+    # worlds spawn
+    parts = []
+    for w in worlds:
+        names = [n for n, c in cases.items() if world_of(c) == w]
+        parts += [{n: cases[n] for n in names[k::REF_PROCS]}
+                  for k in range(min(REF_PROCS, len(names)))]
+    refs = [subprocess.Popen(
+        [sys.executable, __file__, str(inputs), str(tmp / f"ref{k}.npz"),
+         json.dumps(part)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for k, part in enumerate(parts)]
     got, seconds = {}, {}
     try:
         for w in worlds:
@@ -128,17 +137,17 @@ def run_cases(cases: dict, tmp: Path) -> dict:
             seconds[w] = time.perf_counter() - t0
             got[w] = [pickle.loads((out / f"rank{r}.pkl").read_bytes())
                       for r in range(w)]
-        for proc in refs.values():
+        for proc in refs:
             _, err = proc.communicate(timeout=600)
             assert proc.returncode == 0, err[-4000:]
     finally:
-        for proc in refs.values():
+        for proc in refs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
     ref = {}
-    for w in worlds:
-        with np.load(tmp / f"ref{w}.npz") as z:
+    for k in range(len(parts)):
+        with np.load(tmp / f"ref{k}.npz") as z:
             ref.update(dict(z))
     return {"ref": ref, "world": got, "seconds": seconds}
 
